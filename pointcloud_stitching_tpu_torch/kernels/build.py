@@ -1,0 +1,158 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The build runs at first use, into ``_build/<hash of sources and flags>/``
+inside the package, so a fresh checkout builds everything on its first
+kernel launch and later processes load the cached library.
+
+Every kernel wrapper in this package routes through ``use_kernel`` and
+counts its launches in ``LAUNCHES``, so a run can show that the main path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+SOURCES = ("segment_reduce.cu", "nn.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libpcs_kernels.so"
+
+# launches per wrapper (one per wrapper call that launched its kernels)
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def use_kernel(impl: str, t: torch.Tensor) -> bool:
+    """True when a wrapper must launch its CUDA kernel for tensor ``t``.
+
+    'torch' always takes the plain PyTorch version; 'auto' launches for a
+    CUDA tensor and takes the plain version for a CPU tensor; 'cuda'
+    launches and refuses a CPU tensor.
+    """
+    if impl == "torch":
+        return False
+    if impl not in ("auto", "cuda"):
+        raise ValueError(f"unknown kernel_impl {impl!r}")
+    if t.is_cuda:
+        return True
+    if impl == "cuda":
+        raise ValueError("kernel_impl='cuda' needs CUDA tensors, got a "
+                         f"tensor on {t.device}")
+    return False
+
+
+@dataclasses.dataclass
+class BuildInfo:
+    path: Path
+    seconds: float      # wall time of the nvcc run; 0.0 when cached
+    log: str            # nvcc's output, including ptxas -v resource usage
+    cached: bool
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    return "nvcc"
+
+
+def _key() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless a library for these sources exists."""
+    out_dir = BUILD_ROOT / _key()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return BuildInfo(lib, 0.0, log, cached=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # build under a temporary name, then rename: a concurrent process never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(CSRC / s) for s in SOURCES]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return BuildInfo(lib, seconds, log, cached=False)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes; each returns a cudaError_t as int
+_SIGNATURES = {
+    # vals, flags(u8), n, ch, capacity, out, tile_counts, tile_offsets,
+    # tile_info, part(f64), stream
+    "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # vals, seg(i32), n, ch, capacity, out, tile_info, part(f64), stream
+    "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # query, refT, b, n, m, idx, d2, stream
+    "pcs_nn_batched": (_P, _P, _I, _I, _I, _P, _P, _P),
+}
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.pcs_segsum_tile_rows.argtypes = []
+        lib.pcs_segsum_tile_rows.restype = ctypes.c_int
+        lib.pcs_error_string.argtypes = [ctypes.c_int]
+        lib.pcs_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        msg = library().pcs_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+

@@ -1,0 +1,98 @@
+"""Depth image → 3-D point deprojection.
+
+Port of ``pointcloud_stitching_tpu/ops/deproject.py::deproject``
+(librealsense ``rs2_deproject_pixel_to_point``):
+
+    x = (u - ppx) / fx,  y = (v - ppy) / fy,  [distortion correction],
+    X = x * d,  Y = y * d,  Z = d        (d = depth_raw * depth_scale)
+
+A pure elementwise map over the [H, W] grid, batched over cameras. Pixels
+with zero (or out-of-range) depth become masked, zeroed points. The
+division in ``(u - ppx) / fx`` is kept as the JAX code has it (a reciprocal
+multiply would differ in the last ulp). Colour mapping is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.types import DistortionModel, Intrinsics, PointCloud
+
+
+def _undistort_brown_conrady_iterative(x, y, coeffs, iters: int = 10):
+    """Invert the forward Brown–Conrady model by fixed-point iteration
+    (librealsense's RS2_DISTORTION_BROWN_CONRADY deprojection)."""
+    k1, k2, p1, p2, k3 = (coeffs[..., i] for i in range(5))
+    xo, yo = x, y
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = 1.0 / (1.0 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = 2.0 * p2 * x * y + p1 * (r2 + 2.0 * y * y)
+        x, y = (xo - dx) * icdist, (yo - dy) * icdist
+    return x, y
+
+
+def _distort_inverse_brown_conrady(x, y, coeffs):
+    """Apply the stored inverse polynomial forward (closed form)."""
+    k1, k2, p1, p2, k3 = (coeffs[..., i] for i in range(5))
+    r2 = x * x + y * y
+    f = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    ux = x * f + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    uy = y * f + 2.0 * p2 * x * y + p1 * (r2 + 2.0 * y * y)
+    return ux, uy
+
+
+def deproject(depth: torch.Tensor, intr: Intrinsics,
+              depth_scale: float = 0.001, z_min: float = 0.0,
+              z_max: float = float("inf")) -> PointCloud:
+    """Deproject a (possibly camera-batched) depth image to 3-D points.
+
+    Args:
+      depth: [..., H, W] uint16 raw depth units (or float meters, scale 1).
+      intr: Intrinsics on depth's device; batched fields broadcast against
+        the leading depth dims.
+    Returns:
+      PointCloud with xyz [..., H*W, 3] and mask [..., H*W], row-major
+      pixel order (v major).
+    """
+    h, w = depth.shape[-2], depth.shape[-1]
+    dev = depth.device
+    z = depth.to(torch.float32) * torch.tensor(depth_scale, dtype=torch.float32)
+    u = torch.arange(w, dtype=torch.float32, device=dev).expand(h, w)
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+
+    def expand(p):  # [...] -> [..., 1, 1] for broadcasting over H, W
+        return p.to(torch.float32)[..., None, None]
+
+    x = (u - expand(intr.ppx)) / expand(intr.fx)
+    y = (v - expand(intr.ppy)) / expand(intr.fy)
+
+    if intr.model in (int(DistortionModel.BROWN_CONRADY),
+                      int(DistortionModel.INVERSE_BROWN_CONRADY),
+                      int(DistortionModel.MIXED)):
+        coeffs = intr.coeffs.to(torch.float32)[..., None, None, :]
+    if intr.model == int(DistortionModel.BROWN_CONRADY):
+        x, y = _undistort_brown_conrady_iterative(x, y, coeffs)
+    elif intr.model == int(DistortionModel.INVERSE_BROWN_CONRADY):
+        x, y = _distort_inverse_brown_conrady(x, y, coeffs)
+    elif intr.model == int(DistortionModel.MIXED):
+        # every correction, selected per camera by its model id
+        x_bc, y_bc = _undistort_brown_conrady_iterative(x, y, coeffs)
+        x_ibc, y_ibc = _distort_inverse_brown_conrady(x, y, coeffs)
+        mid = intr.model_ids.to(torch.int32)[..., None, None]
+        is_bc = mid == int(DistortionModel.BROWN_CONRADY)
+        is_ibc = mid == int(DistortionModel.INVERSE_BROWN_CONRADY)
+        x = torch.where(is_bc, x_bc, torch.where(is_ibc, x_ibc, x))
+        y = torch.where(is_bc, y_bc, torch.where(is_ibc, y_ibc, y))
+
+    xyz = torch.stack([x * z, y * z, z], dim=-1)
+    zlo = torch.tensor(max(z_min, 0.0), dtype=torch.float32)
+    mask = z > zlo
+    if z_max != float("inf"):
+        mask = mask & (z <= torch.tensor(z_max, dtype=torch.float32))
+
+    batch = depth.shape[:-2]
+    xyz = xyz.reshape(*batch, h * w, 3)
+    mask = mask.reshape(*batch, h * w)
+    xyz = torch.where(mask[..., None], xyz, 0.0)
+    return PointCloud(xyz=xyz, mask=mask)

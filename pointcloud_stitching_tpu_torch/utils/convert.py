@@ -1,0 +1,38 @@
+"""Carry the JAX package's state over to the port.
+
+The stitcher has no weights: its state is the camera intrinsics, the
+per-camera extrinsics and the config. The JAX side hands them over as numpy
+arrays (``np.asarray`` of each field) and these functions build the port's
+counterparts, so both sides compute the same thing. The config crosses as
+JSON through ``StitchConfig.from_jax_json``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .types import Intrinsics
+
+INTRINSICS_FIELDS = ("fx", "fy", "ppx", "ppy", "coeffs")
+
+
+def intrinsics_from_numpy(fields: dict, width: int, height: int, model: int,
+                          device=None) -> Intrinsics:
+    """Intrinsics from numpy fields ``fx, fy, ppx, ppy, coeffs`` (and
+    ``model_ids`` for a MIXED rig); ``width``/``height``/``model`` are the
+    static ints."""
+    t = {k: torch.tensor(np.asarray(fields[k], np.float32), device=device)
+         for k in INTRINSICS_FIELDS}
+    ids = fields.get("model_ids")
+    if ids is not None:
+        ids = torch.tensor(np.asarray(ids, np.int32), device=device)
+    return Intrinsics(**t, model_ids=ids, width=int(width),
+                      height=int(height), model=int(model))
+
+
+def extrinsics_from_numpy(a, device=None) -> torch.Tensor:
+    """[..., 4, 4] camera→world transforms as float32."""
+    a = np.asarray(a, np.float32)
+    if a.shape[-2:] != (4, 4):
+        raise ValueError(f"extrinsics must be [..., 4, 4], got {a.shape}")
+    return torch.tensor(a, device=device)

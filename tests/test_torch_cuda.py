@@ -1,0 +1,129 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need an NVIDIA GPU (CUDA kernels have no CPU mode): each takes
+the ``cuda_device`` fixture, which skips where there is none. The file
+imports no JAX, so it also runs where JAX is not installed; there, skip
+tests/conftest.py (which sets JAX up):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import pointcloud_stitching_tpu_torch as P
+from pointcloud_stitching_tpu_torch.kernels import build as kb
+from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
+    nn_batched_prepared, prepare_ref_batched)
+from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+    segment_sum_from_flags, segment_sum_sorted)
+from oracle import random_se3, synth_depth_frame
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The first GPU; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(1234)
+
+
+def test_segment_kernels_match_plain(rng, cuda_device):
+    """Float64 accumulation makes kernel and plain version bitwise equal,
+    float channels included, with segments that cross tile boundaries."""
+    n = 200_000
+    flags = rng.random(n) < 0.01            # ~100-row segments
+    flags[:5] = False                       # leading rows carry id -1
+    vals = np.concatenate([rng.integers(0, 1024, (n, 4)),
+                           rng.normal(size=(n, 3))], 1).astype(np.float32)
+    v = torch.from_numpy(vals).to(cuda_device)
+    f = torch.from_numpy(flags).to(cuda_device)
+    kb.reset_launches()
+    for cap in (500, 1900, 5000):           # saturated and not
+        got = segment_sum_from_flags(v, f, cap, impl="cuda")
+        want = segment_sum_from_flags(v, f, cap, impl="torch")
+        assert torch.equal(got, want)
+        seg = torch.cumsum(f.to(torch.int32), 0, dtype=torch.int32) - 1
+        seg = torch.where((seg >= 0) & (seg < cap), seg, cap).to(torch.int32)
+        got = segment_sum_sorted(v, seg, cap, impl="cuda")
+        want = segment_sum_sorted(v, seg, cap, impl="torch")
+        assert torch.equal(got, want)
+    assert kb.LAUNCHES["segment_sum_from_flags"] == 3
+    assert kb.LAUNCHES["segment_sum_sorted"] == 3
+
+
+def test_segment_kernels_edge_shapes(cuda_device):
+    for n, ch in ((1, 1), (511, 16), (513, 5), (4096, 10)):
+        vals = torch.arange(n * ch, dtype=torch.float32,
+                            device=cuda_device).reshape(n, ch)
+        flags = torch.zeros(n, dtype=torch.bool, device=cuda_device)
+        flags[0] = True                     # one segment over every row
+        got = segment_sum_from_flags(vals, flags, 3, impl="cuda")
+        want = segment_sum_from_flags(vals, flags, 3, impl="torch")
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        segment_sum_sorted(vals, torch.zeros(n, dtype=torch.int64,
+                                             device=cuda_device), 3,
+                           impl="cuda")
+
+
+def test_nn_kernel_matches_plain(rng, cuda_device):
+    q = torch.from_numpy(rng.normal(size=(8, 2048, 3)).astype(np.float32))
+    r_np = rng.normal(size=(8, 3000, 3)).astype(np.float32)
+    r_np[:, 2500] = r_np[:, 10]             # a tie: index 10 must win
+    q[:, 0] = torch.from_numpy(r_np[:, 10])
+    mask = torch.from_numpy(rng.random((8, 3000)) > 0.1)
+    mask[:, [10, 2500]] = True
+    refT = prepare_ref_batched(torch.from_numpy(r_np).to(cuda_device),
+                               mask.to(cuda_device))
+    qd = q.to(cuda_device)
+    gi, gd = nn_batched_prepared(qd, refT, impl="cuda")
+    wi, wd = nn_batched_prepared(qd, refT, impl="torch")
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert bool((gi[:, 0] == 10).all())
+
+
+def test_pipeline_kernels_match_plain_and_are_launched(cuda_device):
+    """Two track-mode frames of a 3-camera rig: the same output with the
+    kernels and with the plain versions, and each frame launches one NN
+    kernel per ICP iteration, one K1 and one K2."""
+    h, w, ncam = 120, 212, 3
+    depths = torch.from_numpy(np.stack(
+        [synth_depth_frame(h, w, seed=s) for s in range(ncam)]))
+    i0 = P.Intrinsics.create(fx=106.0, fy=106.0, ppx=w / 2, ppy=h / 2,
+                             width=w, height=h)
+    intr = i0.stack([i0] * (ncam - 1))
+    ext = np.stack([random_se3(seed=10 + i, max_angle=0.1, max_trans=0.2)
+                    for i in range(ncam)])
+    cfg = P.StitchConfig(num_cameras=ncam, height=h, width=w,
+                         out_voxel_leaf=0.02, out_capacity=65536,
+                         icp_voxel_leaf=0.04, icp_capacity=4096,
+                         icp_iterations=3, icp_max_corr_dist=0.3)
+    outs = {}
+    for impl in ("auto", "torch"):
+        pipe = P.StitchingPipeline(dataclasses.replace(cfg, kernel_impl=impl),
+                                   intr, ext, device=cuda_device,
+                                   update_mode="track")
+        kb.reset_launches()
+        for _ in range(2):
+            out = pipe(depths)
+        torch.cuda.synchronize()
+        outs[impl] = (out, dict(kb.LAUNCHES))
+    (a, la), (b, lb) = outs["auto"], outs["torch"]
+    assert la == {"nn_batched_prepared": 6, "segment_sum_from_flags": 2,
+                  "segment_sum_sorted": 2}
+    assert not lb
+    assert torch.equal(a.extrinsics, b.extrinsics)
+    assert torch.equal(a.cloud.mask, b.cloud.mask)
+    assert torch.equal(a.cloud.xyz, b.cloud.xyz)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
