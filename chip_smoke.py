@@ -3,8 +3,9 @@
 
 Drives ``pointcloud_stitching_tpu_torch.StitchingPipeline`` at the flagship
 configuration (8 cameras of 848x480 u16 depth, ring point-to-plane ICP with
-5 iterations, a 262144-slot 1 cm output grid) and checks the three
-hand-written CUDA kernels on its path:
+5 iterations, a 262144-slot 1 cm output grid) and the registration path
+(``register_pair`` / ``register_global`` / the register CLI) at 131k x 131k
+points, and checks the four hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -18,7 +19,15 @@ hand-written CUDA kernels on its path:
      the flagship config);
   5. an independent check of the no-ICP step against the numpy oracle in
      tests/oracle.py;
-  6. steady-state ms/frame and points/s, host syncs per frame, peak memory.
+  6. steady-state ms/frame and points/s, host syncs per frame, peak memory;
+  7. the registration (calibration) path at the scale users run: two
+     voxel-sorted clouds of >= 100k points (one 848x480 frame in 131072
+     slots, and a moved copy with 1 mm noise). K4 against its plain version
+     with the ranges block_ranges gives and with ranges narrowed on
+     purpose, the pruned NN against brute-force K3, register_pair with
+     pruned icp_converge ('auto' against 'torch', with one K3 and one K4
+     launch per iteration), register_global against a ~2-rad misalignment,
+     the register CLI as a subprocess, and timings.
 
 Any failed check raises and the script exits non-zero. Run from the repo
 root with no arguments: ``python3 chip_smoke.py``. It imports nothing of
@@ -26,6 +35,7 @@ JAX. The last line of its output is one JSON object with "ok": true.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import subprocess
@@ -42,6 +52,9 @@ RTOL_F32 = 1e-6     # f32 centroids, kernel vs plain (see phase 3)
 ATOL_F32 = 1e-6     # meters; keeps rtol meaningful for centroids near 0
 ATOL_SLICE = 1e-4   # extrinsics and sorted clouds, 'auto' vs 'torch'
 ATOL_ORACLE = 1e-4  # meters, centroids against the numpy oracle
+REG_CAP = 131072    # registration cloud slots (docs/KERNELS.md's 131k case)
+ATOL_REG = 1e-6     # registration T, 'auto' vs 'torch'
+MAX_REG_ERR = 0.005  # meters, registered points against the true pose
 
 
 def say(msg: str) -> None:
@@ -128,14 +141,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/6 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/7 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/6 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/7 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -169,7 +182,7 @@ def main() -> int:
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 packed sums differ from plain")
     err_k1 = (got - want).abs().max().item()
-    say(f"[3/6 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/7 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments)")
     # K1, exact branch at the 6 cm leaf: float channels
     flags6, vals6 = V._sorted_segments(fused, 0.06)
@@ -303,7 +316,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/6 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/7 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -327,7 +340,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/6 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/7 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -371,12 +384,14 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/6 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/7 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
         f"host syncs/frame auto {s_auto} torch {s_plain}; peak memory "
         f"{peak:.1f} MiB")
+
+    registration_phase(dev, kb, report, kernels, card)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(card)
@@ -384,6 +399,211 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def registration_phase(dev, kb, report, kernels, card) -> None:
+    """Phase 7: the calibration path (K4, with K1 and K3) at 131k points."""
+    import tempfile
+
+    import torch
+    import oracle
+    from pointcloud_stitching_tpu_torch import Intrinsics, PointCloud
+    from pointcloud_stitching_tpu_torch.io import load_cal, save_ply
+    from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
+        block_ranges, nearest_neighbors_pallas_batched,
+        nearest_neighbors_pruned, nn_batched_prepared,
+        nn_batched_prepared_ranged, prepare_ref_batched)
+    from pointcloud_stitching_tpu_torch.models import (
+        register_from_correspondences, register_global, register_pair)
+    from pointcloud_stitching_tpu_torch.ops import (deproject, icp,
+                                                    icp_converge, se3_apply,
+                                                    voxel_downsample)
+
+    # src: one frame at the flagship intrinsics, voxel-sorted into 131072
+    # slots; the leaf starts at 1 cm and coarsens until the slots are not
+    # all used (a saturated pass keeps a crop of the scene)
+    depth = torch.from_numpy(oracle.synth_depth_frame(H, W, 0)).to(dev)
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    raw = deproject(depth, i0, depth_scale=0.001, z_min=0.1, z_max=10.0)
+    leaf = 0.01
+    while True:
+        src = voxel_downsample(raw, leaf, capacity=REG_CAP)
+        n_src = int(src.count())
+        if n_src < REG_CAP:
+            break
+        leaf *= 1.1
+    check(n_src >= 100_000, f"registration cloud has only {n_src} points")
+    valid = src.xyz[src.mask].cpu().numpy()
+    noise = torch.from_numpy(np.random.default_rng(2).normal(
+        0.0, 0.001, (REG_CAP, 3)).astype(np.float32)).to(dev)
+
+    def moved(T_np):
+        """src under T_np plus 1 mm noise, in src's (voxel) order."""
+        xyz = se3_apply(torch.from_numpy(T_np).to(dev), src.xyz) + noise
+        return PointCloud(xyz=torch.where(src.mask[:, None], xyz, 0.0),
+                          mask=src.mask)
+
+    def point_err(T, T_ref) -> float:
+        """Largest distance between src's points under T and under T_ref."""
+        got = oracle.transform_np(T.cpu().numpy(), valid)
+        return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
+                                    axis=-1).max())
+
+    T_true = oracle.random_se3(seed=3, max_angle=0.05, max_trans=0.05)
+    dst = moved(T_true)
+    picks = np.linspace(0, n_src - 1, 4).astype(np.int64)
+    say(f"[7/7 registration] src {n_src} points at a {leaf:.4f} m leaf "
+        f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
+        f"1 mm noise")
+
+    # (a)-(c): K4 at the first ICP iteration's shapes, 131072 x 131072
+    T0 = register_from_correspondences(src, dst, picks, picks)
+    q, qm = se3_apply(T0, src.xyz)[None], src.mask[None]
+    r, rm = dst.xyz[None], dst.mask[None]
+    _, ub = nearest_neighbors_pallas_batched(q, r[:, ::16], rm[:, ::16],
+                                             impl="cuda")
+    jlo, jhi = block_ranges(q, qm, r, rm, ub, query_tile=1024,
+                            ref_block=2048)
+    refT = prepare_ref_batched(r, rm)
+
+    def k4(lo, hi, impl):
+        return nn_batched_prepared_ranged(q, refT, lo, hi, query_tile=1024,
+                                          ref_block=2048, impl=impl)
+
+    gi, gd = k4(jlo, jhi, "cuda")
+    wi, wd = k4(jlo, jhi, "torch")
+    torch.cuda.synchronize()
+    check(torch.equal(gi, wi), "K4 idx differs from plain")
+    check(torch.equal(gd, wd), "K4 d2 not bitwise equal to plain")
+    nq, nm = jlo.shape[1], -(-REG_CAP // 2048)
+    share = float((jhi - jlo + 1).sum()) / (nq * nm)
+    bi, bd = nn_batched_prepared(q, refT, impl="cuda")
+    pi, pd = nearest_neighbors_pruned(q, r, rm, qm, impl="cuda")
+    check(torch.equal(pi[qm], bi[qm]) and torch.equal(pd[qm], bd[qm]),
+          "pruned NN differs from brute force on valid queries")
+    ni, nd = k4(jlo, jlo, "cuda")
+    nwi, nwd = k4(jlo, jlo, "torch")
+    check(torch.equal(ni, nwi) and torch.equal(nd, nwd),
+          "K4 with narrowed ranges differs from plain")
+    n_diff = int((ni != bi)[qm].sum())
+    check(n_diff > 0, "narrowed ranges gave the brute-force answer")
+    say(f"    (a) K4 {tuple(q.shape)} vs {tuple(r.shape)}, ranges of "
+        f"block_ranges: idx equal, d2 bitwise equal; blocks swept "
+        f"{share:.4f} of {nq} x {nm}")
+    say(f"    (b) pruned NN (K3 coarse + K4) == brute-force K3 on "
+        f"{int(qm.sum())} valid queries")
+    say(f"    (c) K4 with ranges cut to one block: equal to plain, "
+        f"{n_diff} valid queries differ from brute force")
+    ms, pms = time_in_turns(lambda: k4(jlo, jhi, "cuda"),
+                            lambda: k4(jlo, jhi, "torch"), reps=5)
+    report("nn_batched_prepared_ranged",
+           "pointcloud_stitching_tpu_torch/csrc/nn.cu",
+           "pointcloud_stitching_tpu/kernels/nn_pallas.py:300",
+           (gd - wd).abs().max().item(), ms, pms)
+    del gi, gd, wi, wd, bi, bd, pi, pd, ni, nd, nwi, nwd
+
+    # (d): the main path, register_pair + pruned icp_converge
+    runs = {}
+    for impl in ("auto", "torch"):
+        torch.cuda.reset_peak_memory_stats()
+        kb.reset_launches()
+        res = register_pair(src, dst, picks, picks, prune=True,
+                            kernel_impl=impl)
+        torch.cuda.synchronize()
+        runs[impl] = (res, dict(kb.LAUNCHES),
+                      torch.cuda.max_memory_allocated() / 2 ** 20)
+    (ra, la, peak_a), (rt, lt, peak_t) = runs["auto"], runs["torch"]
+    it = int(ra.icp.iterations)
+    check(it == int(rt.icp.iterations), "auto/torch iteration counts differ")
+    d_T = float((ra.T - rt.T).abs().max())
+    check(d_T <= ATOL_REG, f"register_pair T differs auto vs torch: {d_T}")
+    want = {"nn_batched_prepared": it, "nn_batched_prepared_ranged": it}
+    check(la == want, f"register_pair launches {la}, want {want}")
+    check(not lt, f"'torch' register_pair launched kernels {lt}")
+    kernels["nn_batched_prepared_ranged"]["launches"] = \
+        la.get("nn_batched_prepared_ranged", 0)
+    err_d = point_err(ra.T, T_true)
+    check(err_d < MAX_REG_ERR, f"register_pair error {err_d} m")
+    say(f"    (d) register_pair, 4 picks + icp_converge(prune=True): {it} "
+        f"iterations, |T auto - T torch| {d_T:.3g}, max point error "
+        f"{err_d * 1e3:.4f} mm, mean_error {float(ra.icp.mean_error):.4g}, "
+        f"inliers {int(ra.icp.num_inliers)}; launches {la}")
+
+    # (e): register_global against a ~2-rad misalignment
+    T_glob = oracle.random_se3(seed=0, max_angle=2.0, max_trans=0.3)
+    dst_g = moved(T_glob)
+    kb.reset_launches()
+    rg = register_global(src, dst_g, torch.Generator().manual_seed(0),
+                         num_starts=64, prune=True)
+    torch.cuda.synchronize()
+    lg = dict(kb.LAUNCHES)
+    itg = int(rg.icp.iterations)
+    check(lg.get("segment_sum_from_flags", 0) >= 2
+          and lg.get("nn_batched_prepared") == 15 + itg
+          and lg.get("nn_batched_prepared_ranged") == itg,
+          f"register_global launches {lg} ({itg} refine iterations)")
+    err_g = point_err(rg.T, T_glob)
+    check(err_g < MAX_REG_ERR, f"register_global error {err_g} m")
+    angle = np.degrees(np.arccos((np.trace(T_glob[:3, :3]) - 1) / 2))
+    say(f"    (e) register_global, 64 starts, {angle:.1f} deg misalignment: "
+        f"max point error {err_g * 1e3:.4f} mm, {itg} refine iterations; "
+        f"launches {lg}")
+
+    # (f): the CLI, as a user runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        sp, dp, out = (os.path.join(tmp, f) for f in ("s.ply", "d.ply",
+                                                       "pair.cal"))
+        save_ply(sp, valid)
+        save_ply(dp, dst_g.xyz[dst_g.mask].cpu().numpy())
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "pointcloud_stitching_tpu_torch.tools.register_cli", sp, dp, out,
+             "--global", "--prune"], cwd=REPO, capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, PCS_PLATFORM="cuda"))
+        t_cli = time.perf_counter() - t
+        check(proc.returncode == 0, f"register_cli failed:\n{proc.stderr}")
+        err_f = point_err(torch.from_numpy(load_cal(out)), T_glob)
+    check(err_f < MAX_REG_ERR, f"register_cli .cal error {err_f} m")
+    cli = [ln for ln in proc.stdout.splitlines()
+           if ln.startswith(("src", "ICP"))]
+    say(f"    (f) register_cli --global --prune: {' | '.join(cli)}; .cal max "
+        f"point error {err_f * 1e3:.4f} mm; {t_cli:.1f} s as a subprocess")
+
+    # timings: ms per ICP iteration, host syncs, peak memory
+    k = 5
+
+    def iteration_ms(impl, prune, reps):
+        fn = lambda: icp(src, dst, init_T=T0, iterations=k,  # noqa: E731
+                         max_corr_dist=0.25, nn_impl=impl, prune=prune)
+        fn()
+        torch.cuda.synchronize()
+        return cuda_ms(fn, reps) / k
+
+    t_pruned = iteration_ms("auto", True, 4)
+    t_brute = iteration_ms("auto", False, 2)
+    t_plain = iteration_ms("torch", True, 1)
+    t_pruned2 = iteration_ms("auto", True, 4)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rs = icp_converge(src, dst, init_T=T0, prune=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+    syncs = sum(sites.values())
+    say(f"    timing {card}: ms per ICP iteration at {REG_CAP} x {REG_CAP}: "
+        f"pruned (K3 coarse + K4) {t_pruned:.3f} / {t_pruned2:.3f}, "
+        f"unpruned K3 {t_brute:.3f}, plain pruned {t_plain:.3f}; K4 alone "
+        f"{ms:.4f} ms vs plain {pms:.4f} ms; blocks swept {share:.4f}; host "
+        f"syncs {syncs} in {int(rs.iterations)} icp_converge iterations "
+        f"{dict(sites)}; "
+        f"peak memory register_pair auto {peak_a:.1f} MiB, torch "
+        f"{peak_t:.1f} MiB")
 
 
 if __name__ == "__main__":

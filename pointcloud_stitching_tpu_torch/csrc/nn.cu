@@ -1,4 +1,5 @@
 // K3: exact batched 1-nearest-neighbour by direct squared differences.
+// K4, its range-pruned variant, follows it below.
 //
 // Replaces: pointcloud_stitching_tpu/kernels/nn_pallas.py
 //   nn_batched_prepared (_nn_kernel_dma), prepared by prepare_ref_batched.
@@ -80,6 +81,104 @@ __global__ void nn_batched(const float* __restrict__ query,  // [B, N, 3]
   }
 }
 
+// K4: K3's search restricted to reference-block ranges.
+//
+// Replaces: pointcloud_stitching_tpu/kernels/nn_pallas.py
+//   nn_batched_prepared_ranged (_nn_kernel_dma_ranged), reached through
+//   nearest_neighbors_pruned.
+//
+// Contract: query q of batch row b lies in query tile t = q / query_tile
+// and sweeps only the references [jlo[b,t] * ref_block,
+// min((jhi[b,t] + 1) * ref_block, M)), in ascending order with a strict
+// `<`, so the result is the first index of the minimum over that range,
+// with K3's arithmetic (bitwise equal d2). The reference is unpadded, so
+// the last block is ragged and the sweep end is clamped to M; an empty
+// range (jlo > jhi) leaves (d2, idx) = (+inf, 0).
+//
+// What bounds it on Hopper: the same FP32 issue rate as K3, times the
+// share of reference blocks that the ranges keep. Ranges belong to query
+// tiles, not CUDA blocks: each block stages the union of its threads'
+// ranges through shared memory and each thread compares only the
+// references of its own tile's range. With query_tile a multiple of 256
+// every thread of a block shares one range and nothing staged is skipped.
+// Ranges of very different lengths leave some SMs with far more work than
+// others; that imbalance is not addressed here.
+__global__ void nn_batched_ranged(const float* __restrict__ query,  // [B,N,3]
+                                  const float* __restrict__ refT,   // [B,3,M]
+                                  const int* __restrict__ jlo,      // [B,nq]
+                                  const int* __restrict__ jhi,      // [B,nq]
+                                  int n, int m, int nq, int query_tile,
+                                  int ref_block, int* __restrict__ idx_out,
+                                  float* __restrict__ d2_out) {
+  __shared__ float sx[RTILE], sy[RTILE], sz[RTILE];
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * THREADS;
+  const int q = q0 + threadIdx.x;
+  const bool live = q < n;
+  const int* lo_b = jlo + (long long)b * nq;
+  const int* hi_b = jhi + (long long)b * nq;
+  // reference range [lo, hi) of a query tile, clamped to [0, m]
+  auto range_lo = [&](int t) {
+    return (int)min(max((long long)lo_b[t] * ref_block, 0LL), (long long)m);
+  };
+  auto range_hi = [&](int t) {
+    return (int)min(max(((long long)hi_b[t] + 1) * ref_block, 0LL),
+                    (long long)m);
+  };
+  // the union over the tiles this block's queries fall in
+  const int t_first = q0 / query_tile;
+  const int t_last = min((min(q0 + THREADS, n) - 1) / query_tile, nq - 1);
+  int ulo = m, uhi = 0;
+  for (int t = t_first; t <= t_last; ++t) {
+    ulo = min(ulo, range_lo(t));
+    uhi = max(uhi, range_hi(t));
+  }
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  int mylo = 0, myhi = 0;
+  if (live) {
+    const float* p = query + ((long long)b * n + q) * 3;
+    qx = p[0];
+    qy = p[1];
+    qz = p[2];
+    const int t = min(q / query_tile, nq - 1);
+    mylo = range_lo(t);
+    myhi = range_hi(t);
+  }
+  const float* rx = refT + (long long)b * 3 * m;
+  const float* ry = rx + m;
+  const float* rz = ry + m;
+  float best = INFINITY;
+  int best_idx = 0;
+  for (int base = ulo; base < uhi; base += RTILE) {
+    const int cnt = min(RTILE, uhi - base);
+    __syncthreads();
+    for (int k = threadIdx.x; k < cnt; k += THREADS) {
+      sx[k] = rx[base + k];
+      sy[k] = ry[base + k];
+      sz[k] = rz[base + k];
+    }
+    __syncthreads();
+    const int kb = max(mylo - base, 0);
+    const int ke = min(myhi - base, cnt);
+    for (int k = kb; k < ke; ++k) {
+      const float dx = __fsub_rn(qx, sx[k]);
+      const float dy = __fsub_rn(qy, sy[k]);
+      const float dz = __fsub_rn(qz, sz[k]);
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
+                                           __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      if (d2 < best) {
+        best = d2;
+        best_idx = base + k;
+      }
+    }
+  }
+  if (live) {
+    idx_out[(long long)b * n + q] = best_idx;
+    d2_out[(long long)b * n + q] = best;
+  }
+}
+
 }  // namespace
 
 extern "C" int pcs_nn_batched(const float* query, const float* refT, int b,
@@ -89,5 +188,20 @@ extern "C" int pcs_nn_batched(const float* query, const float* refT, int b,
   const dim3 grid((n + THREADS - 1) / THREADS, b);
   nn_batched<<<grid, THREADS, 0, (cudaStream_t)stream>>>(query, refT, n, m,
                                                           idx, d2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pcs_nn_batched_ranged(const float* query, const float* refT,
+                                     const int* jlo, const int* jhi, int b,
+                                     int n, int m, int query_tile,
+                                     int ref_block, int* idx, float* d2,
+                                     void* stream) {
+  if (b < 1 || n < 1 || m < 1 || b > 65535 || query_tile < 1 ||
+      ref_block < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nq = (n + query_tile - 1) / query_tile;
+  const dim3 grid((n + THREADS - 1) / THREADS, b);
+  nn_batched_ranged<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      query, refT, jlo, jhi, n, m, nq, query_tile, ref_block, idx, d2);
   return (int)cudaGetLastError();
 }

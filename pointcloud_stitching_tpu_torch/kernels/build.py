@@ -124,6 +124,9 @@ _SIGNATURES = {
     "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # query, refT, b, n, m, idx, d2, stream
     "pcs_nn_batched": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # query, refT, jlo, jhi, b, n, m, query_tile, ref_block, idx, d2, stream
+    "pcs_nn_batched_ranged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                              _P),
 }
 
 _lib = None

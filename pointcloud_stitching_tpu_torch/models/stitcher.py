@@ -25,6 +25,7 @@ from ..ops.se3 import mm, se3_apply, se3_blend, se3_power
 from ..ops.deproject import deproject
 from ..ops.voxel import decimate_depth, voxel_downsample
 from ..utils.config import StitchConfig
+from ..utils.platform import set_full_fp32_matmul
 from ..utils.types import Intrinsics, PointCloud, scalar
 
 
@@ -257,15 +258,6 @@ def stitch_points_step(cfg: StitchConfig, extrinsics: torch.Tensor,
     s = cfg.icp_stride * cfg.icp_stride  # the depth path's area ratio
     sub = PointCloud(xyz=clouds.xyz[:, ::s], mask=clouds.mask[:, ::s])
     return _stitch_tail(cfg, clouds, extrinsics, points_in, sub, out_leaf)
-
-
-def set_full_fp32_matmul() -> None:
-    """Full float32 for every matmul and convolution: TF32 would round
-    rotation entries at about 1e-3 (the twin of the TPU's bf16 pass that
-    the JAX package avoids with precision='highest')."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 class StitchingPipeline:

@@ -1,7 +1,8 @@
 from .deproject import deproject
 from .filters import crop_box
 from .fuse import fuse, fuse_batched
-from .icp import ICPResult, icp_batched, icp_point_to_plane_batched
+from .icp import (ICPResult, icp, icp_batched, icp_converge,
+                  icp_point_to_plane_batched)
 from .kabsch import kabsch
 from .nn import nearest_neighbors
 from .normals import grid_normals
@@ -11,7 +12,7 @@ from .voxel import decimate_depth, voxel_downsample
 
 __all__ = [
     "ICPResult", "crop_box", "decimate_depth", "deproject", "fuse",
-    "fuse_batched", "grid_normals", "icp_batched",
+    "fuse_batched", "grid_normals", "icp", "icp_batched", "icp_converge",
     "icp_point_to_plane_batched", "kabsch", "mm", "nearest_neighbors",
     "se3_apply", "se3_blend", "se3_from_rt", "se3_inverse", "se3_power",
     "so3_exp", "so3_log", "transform_cloud", "voxel_downsample",

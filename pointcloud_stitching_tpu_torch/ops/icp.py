@@ -1,13 +1,22 @@
-"""Batched fixed-iteration ICP for the stitcher's ring drift correction.
+"""Iterative Closest Point: batched for the stitcher, single-pair for
+registration.
 
-Port of ``icp_batched`` and ``icp_point_to_plane_batched`` from
-``pointcloud_stitching_tpu/ops/icp.py``. Each iteration is one batched NN
-call over every camera pair (kernel K3, with the reference prepared once
-per call), correspondence rejection (max distance, optional trimming), and
-a per-pair solve: weighted Kabsch (point-to-point) or the 6x6 linearised
-normal equations (point-to-plane). The 6x6 solve uses
-``torch.linalg.solve_ex``: unlike ``solve`` it neither raises on a singular
-system nor waits for the device to report one.
+Port of ``pointcloud_stitching_tpu/ops/icp.py``. ``icp_batched`` and
+``icp_point_to_plane_batched`` serve the stitcher's ring drift correction:
+each iteration is one batched NN call over every camera pair (kernel K3,
+with the reference prepared once per call), correspondence rejection (max
+distance, optional trimming), and a per-pair solve: weighted Kabsch
+(point-to-point) or the 6x6 linearised normal equations (point-to-plane).
+The 6x6 solve uses ``torch.linalg.solve_ex``: unlike ``solve`` it neither
+raises on a singular system nor waits for the device to report one.
+
+``icp`` (fixed iterations) and ``icp_converge`` (PCL-style epsilon
+termination) align one pair, as the offline registration tool does. With
+``prune=True`` their NN is the key-range-pruned search (K3 coarse pass +
+``block_ranges`` + K4), which equals brute force and pays off on large
+voxel-sorted clouds. Unlike the JAX package, which ignores ``prune`` off
+the TPU, the port honours it on every device; the plain versions run it on
+the CPU.
 """
 from __future__ import annotations
 
@@ -15,17 +24,19 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.nn_pallas import nn_batched_prepared, prepare_ref_batched
+from ..kernels.nn_pallas import (nearest_neighbors_pruned,
+                                 nn_batched_prepared, prepare_ref_batched)
 from ..utils.types import PointCloud, scalar
 from .kabsch import kabsch
-from .se3 import mm, se3_apply, se3_from_rt, so3_exp
+from .nn import nearest_neighbors
+from .se3 import mm, se3_apply, se3_from_rt, se3_inverse, so3_exp
 
 
 class ICPResult(NamedTuple):
-    T: torch.Tensor           # [B, 4, 4] refined src→dst transforms
-    mean_error: torch.Tensor  # [B] mean squared correspondence residual
-    num_inliers: torch.Tensor  # [B] int32
-    iterations: torch.Tensor  # [B] int32
+    T: torch.Tensor           # [B, 4, 4] (batched) or [4, 4] src→dst
+    mean_error: torch.Tensor  # [B] or [] mean squared inlier residual
+    num_inliers: torch.Tensor  # [B] or [] int32
+    iterations: torch.Tensor  # [B] or [] int32
 
 
 def _make_nn_batched(dst: PointCloud, nn_impl: str):
@@ -134,3 +145,87 @@ def icp_point_to_plane_batched(src: PointCloud, dst: PointCloud,
     return ICPResult(T=T, mean_error=err, num_inliers=n_in.to(torch.int32),
                      iterations=torch.full((b,), iterations, dtype=torch.int32,
                                            device=dev))
+
+
+def _icp_step(T, src: PointCloud, dst: PointCloud, max_d2, nn_impl: str,
+              trim_fraction: float, prune: bool):
+    """One point-to-point iteration of a single pair -> (T', err, n_in)."""
+    p = se3_apply(T, src.xyz)
+    if prune:
+        idx, d2 = nearest_neighbors_pruned(p[None], dst.xyz[None],
+                                           dst.mask[None], src.mask[None],
+                                           impl=nn_impl)
+        idx, d2 = idx[0], d2[0]
+    else:
+        idx, d2 = nearest_neighbors(p, dst.xyz, dst.mask, impl=nn_impl)
+    w = (src.mask & (d2 <= max_d2)).to(torch.float32)
+    w = _trim_weights(w, d2, trim_fraction)
+    dT = kabsch(p, dst.xyz[idx.long()], w)
+    n_in = w.sum()
+    err = (w * d2).sum() / torch.clamp(n_in, min=1.0)
+    return mm(dT, T), err, n_in
+
+
+def _init_single(src: PointCloud, init_T, max_corr_dist):
+    dev = src.xyz.device
+    if init_T is None:
+        init_T = torch.eye(4, dtype=torch.float32, device=dev)
+    T = init_T.to(device=dev, dtype=torch.float32)
+    err = torch.full((), float("inf"), device=dev)
+    n_in = torch.zeros((), device=dev)
+    return T, scalar(max_corr_dist, src.xyz) ** 2, err, n_in
+
+
+def _result(T, err, n_in, iterations: int) -> ICPResult:
+    return ICPResult(T=T, mean_error=err, num_inliers=n_in.to(torch.int32),
+                     iterations=torch.full((), iterations, dtype=torch.int32,
+                                           device=T.device))
+
+
+def icp(src: PointCloud, dst: PointCloud,
+        init_T: torch.Tensor | None = None, iterations: int = 5,
+        max_corr_dist=0.1, nn_impl: str = "auto", trim_fraction: float = 0.0,
+        prune: bool = False) -> ICPResult:
+    """Fixed-iteration point-to-point ICP of one pair (constant cost).
+
+    src/dst: PointClouds with xyz [N, 3] / [M, 3]. prune=True uses the
+    key-range-pruned NN (exact; see kernels.nn_pallas
+    .nearest_neighbors_pruned), which pays off on large voxel-sorted
+    clouds.
+    """
+    T, max_d2, err, n_in = _init_single(src, init_T, max_corr_dist)
+    for _ in range(iterations):
+        T, err, n_in = _icp_step(T, src, dst, max_d2, nn_impl,
+                                 trim_fraction, prune)
+    return _result(T, err, n_in, iterations)
+
+
+def icp_converge(src: PointCloud, dst: PointCloud,
+                 init_T: torch.Tensor | None = None,
+                 max_iterations: int = 50,
+                 transformation_epsilon: float = 1e-8,
+                 max_corr_dist=0.25, nn_impl: str = "auto",
+                 trim_fraction: float = 0.0,
+                 prune: bool = False) -> ICPResult:
+    """ICP with PCL-style termination: stop when the incremental
+    transform's squared Frobenius distance from identity drops to
+    ``transformation_epsilon`` or after ``max_iterations``.
+
+    The test runs on the host: one host sync per iteration (the JAX
+    package's ``while_loop`` has none), which an offline tool can afford.
+    On CUDA, Kabsch's ``torch.linalg.svd`` adds two more per iteration
+    (it reads its status on the host).
+    """
+    T, max_d2, err, n_in = _init_single(src, init_T, max_corr_dist)
+    eye = torch.eye(4, dtype=torch.float32, device=T.device)
+    it = 0
+    while it < max_iterations:
+        T2, err, n_in = _icp_step(T, src, dst, max_d2, nn_impl,
+                                  trim_fraction, prune)
+        # rigid inverse (transpose + negate) and a full-float32 product
+        delta = ((mm(T2, se3_inverse(T)) - eye) ** 2).sum()
+        T = T2
+        it += 1
+        if not bool(delta > transformation_epsilon):  # the host sync
+            break
+    return _result(T, err, n_in, it)

@@ -16,7 +16,9 @@ import torch
 import pointcloud_stitching_tpu_torch as P
 from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
-    nn_batched_prepared, prepare_ref_batched)
+    block_ranges, nearest_neighbors_pallas_batched, nearest_neighbors_pruned,
+    nn_batched_prepared, nn_batched_prepared_ranged, prepare_ref_batched)
+from pointcloud_stitching_tpu_torch.ops import icp_converge
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     segment_sum_from_flags, segment_sum_sorted)
 from oracle import random_se3, synth_depth_frame
@@ -127,3 +129,94 @@ def test_pipeline_kernels_match_plain_and_are_launched(cuda_device):
     assert torch.equal(a.cloud.xyz, b.cloud.xyz)
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _sorted_scene(rng, dev, b=2, n=20_000, m=30_001):
+    """References sorted along x (coherent blocks, as voxel order gives;
+    m leaves a ragged last block), queries near them in the same order,
+    about 10% of each masked."""
+    r = rng.uniform(-1, 1, (b, m, 3)).astype(np.float32)
+    r[..., 0] *= 20.0
+    r = np.take_along_axis(r, np.argsort(r[..., 0], axis=1)[..., None], 1)
+    q = (r[:, np.sort(rng.integers(0, m, n))]
+         + rng.normal(0, 0.02, (b, n, 3))).astype(np.float32)
+    return (torch.from_numpy(q).to(dev), torch.from_numpy(r).to(dev),
+            torch.from_numpy(rng.random((b, m)) > 0.1).to(dev),
+            torch.from_numpy(rng.random((b, n)) > 0.1).to(dev))
+
+
+@pytest.mark.parametrize("query_tile", [1024, 128])
+@pytest.mark.parametrize("ranges", ["block_ranges", "narrowed"])
+def test_ranged_kernel_matches_plain(rng, cuda_device, query_tile, ranges):
+    """K4 against its plain version on every query (masked ones too), with
+    the ranges block_ranges gives and with ranges cut to one block."""
+    q, r, rmask, qmask = _sorted_scene(rng, cuda_device)
+    _, ub = nearest_neighbors_pallas_batched(q, r[:, ::16], rmask[:, ::16],
+                                             impl="cuda")
+    jlo, jhi = block_ranges(q, qmask, r, rmask, ub, query_tile=query_tile,
+                            ref_block=2048)
+    if ranges == "narrowed":
+        jhi = jlo.clone()
+    refT = prepare_ref_batched(r, rmask)
+    kb.reset_launches()
+    kw = dict(query_tile=query_tile, ref_block=2048)
+    gi, gd = nn_batched_prepared_ranged(q, refT, jlo, jhi, impl="cuda", **kw)
+    wi, wd = nn_batched_prepared_ranged(q, refT, jlo, jhi, impl="torch",
+                                        **kw)
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["nn_batched_prepared_ranged"] == 1
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    bi, bd = nn_batched_prepared(q, refT, impl="cuda")
+    if ranges == "narrowed":  # a kernel that ignored its ranges fails here
+        assert int((gi != bi).sum()) > 1000
+    else:
+        assert torch.equal(gi[qmask], bi[qmask])
+        assert torch.equal(gd[qmask], bd[qmask])
+
+
+def test_pruned_nn_matches_brute_force(rng, cuda_device):
+    q, r, rmask, qmask = _sorted_scene(rng, cuda_device)
+    kb.reset_launches()
+    gi, gd = nearest_neighbors_pruned(q, r, rmask, qmask, impl="cuda")
+    assert dict(kb.LAUNCHES) == {"nn_batched_prepared": 1,
+                                 "nn_batched_prepared_ranged": 1}
+    bi, bd = nearest_neighbors_pallas_batched(q, r, rmask, impl="cuda")
+    assert torch.equal(gi[qmask], bi[qmask])
+    assert torch.equal(gd[qmask], bd[qmask])
+
+
+def test_ranged_tie_goes_to_the_lower_index(cuda_device):
+    """Equal references in two blocks of one range: the lower index wins."""
+    r = torch.zeros((1, 5000, 3))
+    r[0, :, 0] = torch.arange(5000, dtype=torch.float32)
+    r[0, 4500] = r[0, 700] = torch.tensor([7.0, 1.0, 0.0])
+    q = torch.tensor([7.0, 1.0, 0.0]).expand(1, 300, 3).contiguous()
+    refT = prepare_ref_batched(r.to(cuda_device), None)
+    lo = torch.zeros((1, 3), dtype=torch.int32, device=cuda_device)
+    for qt in (128, 1024):
+        nq = -(-300 // qt)
+        gi, gd = nn_batched_prepared_ranged(
+            q.to(cuda_device), refT, lo[:, :nq], lo[:, :nq] + 2,
+            query_tile=qt, ref_block=2048, impl="cuda")
+        assert bool((gi == 700).all()) and bool((gd == 0).all())
+
+
+def test_pruned_icp_converge_launches_k4(rng, cuda_device):
+    """icp_converge(prune=True) with kernels launches one K3 (coarse pass)
+    and one K4 per iteration and equals the plain run."""
+    q, r, rmask, _ = _sorted_scene(rng, cuda_device, b=1)
+    src = P.PointCloud(xyz=q[0] + 0.01, mask=torch.ones_like(q[0, :, 0],
+                                                             dtype=torch.bool))
+    dst = P.PointCloud(xyz=r[0], mask=rmask[0])
+    out = {}
+    for impl in ("auto", "torch"):
+        kb.reset_launches()
+        res = icp_converge(src, dst, max_iterations=6, max_corr_dist=0.1,
+                           nn_impl=impl, prune=True)
+        torch.cuda.synchronize()
+        out[impl] = (res, dict(kb.LAUNCHES))
+    (a, la), (b, lb) = out["auto"], out["torch"]
+    it = int(a.iterations)
+    assert la == {"nn_batched_prepared": it, "nn_batched_prepared_ranged": it}
+    assert not lb
+    assert torch.equal(a.T, b.T) and int(b.iterations) == it
