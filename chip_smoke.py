@@ -5,7 +5,9 @@ Drives ``pointcloud_stitching_tpu_torch.StitchingPipeline`` at the flagship
 configuration (8 cameras of 848x480 u16 depth, ring point-to-plane ICP with
 5 iterations, a 262144-slot 1 cm output grid) and the registration path
 (``register_pair`` / ``register_global`` / the register CLI) at 131k x 131k
-points, and checks the four hand-written CUDA kernels on those paths:
+points and the TSDF scene model (``models.tsdf``: integrate, extract,
+save/load, raycast, track and the mesh CLI) at 4 x 848x480 into a 256^3
+volume, and checks the five hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -27,7 +29,22 @@ points, and checks the four hand-written CUDA kernels on those paths:
      purpose, the pruned NN against brute-force K3, register_pair with
      pruned icp_converge ('auto' against 'torch', with one K3 and one K4
      launch per iteration), register_global against a ~2-rad misalignment,
-     the register CLI as a subprocess, and timings.
+     the register CLI as a subprocess, and timings;
+  8. the TSDF scene model at bench.py's design point (4 x 848x480 u16 depth
+     of an analytic scene into a 256^3 volume at 1 cm, uint8 colour from
+     seed 2): K5 against its plain version on camera 0's REFINE bricks and
+     on windows made to hit the clamp, alignment and out-of-window cases;
+     integrate 'auto' (the pruned path through K5) against 'dense' bit for
+     bit, with and without colour, and K5's launches (one per gathered
+     plane per camera); five keyframes, then extract_mesh + weld_mesh
+     against the analytic surface, save_volume and the mesh CLI as a
+     subprocess; raycast and track against the analytic scene; timings.
+
+The kernels' line carries, for each kernel, its time beside its bound: the
+larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
+SXM's float32 rate outside the tensor cores), and the time of one PyTorch
+call that computes the same function where there is one.
 
 Any failed check raises and the script exits non-zero. Run from the repo
 root with no arguments: ``python3 chip_smoke.py``. It imports nothing of
@@ -55,6 +72,8 @@ ATOL_ORACLE = 1e-4  # meters, centroids against the numpy oracle
 REG_CAP = 131072    # registration cloud slots (docs/KERNELS.md's 131k case)
 ATOL_REG = 1e-6     # registration T, 'auto' vs 'torch'
 MAX_REG_ERR = 0.005  # meters, registered points against the true pose
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA's data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 
 def say(msg: str) -> None:
@@ -114,6 +133,17 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(nbytes: float, ops: float):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move ``nbytes`` and do ``ops`` float32 operations."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -141,14 +171,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/7 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/8 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/7 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/8 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -166,12 +196,19 @@ def main() -> int:
     fused = fuse_batched(raw.replace(xyz=se3_apply(ext, raw.xyz)))
     kernels = {}
 
-    def report(name, source, replaces, err, ms, plain_ms):
+    def report(name, source, replaces, err, ms, plain_ms, moved, ops,
+               library_ms=None):
+        bound_ms, bound_by = bound(moved, ops)
         kernels[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=0,
-                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+                             max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         say(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"max |kernel - plain| {float(err):.3g}")
+            f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
+            f"{ops / 1e6:.2f} M ops), library call {lib}, max |kernel - "
+            f"plain| {float(err):.3g}")
 
     # K1, packed branch: integer channels, must match bit for bit
     ijk = V.voxel_indices(fused.xyz, fused.mask, 0.01)
@@ -182,7 +219,7 @@ def main() -> int:
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 packed sums differ from plain")
     err_k1 = (got - want).abs().max().item()
-    say(f"[3/7 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/8 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments)")
     # K1, exact branch at the 6 cm leaf: float channels
     flags6, vals6 = V._sorted_segments(fused, 0.06)
@@ -197,10 +234,11 @@ def main() -> int:
     ms, pms = time_in_turns(
         lambda: segment_sum_from_flags(vals, flags, cap, impl="cuda"),
         lambda: segment_sum_from_flags(vals, flags, cap, impl="torch"))
+    # no one PyTorch call: the segment ids need a cumsum of the flags first
     report("segment_sum_from_flags",
            "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
            "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
-           err_k1, ms, pms)
+           err_k1, ms, pms, nbytes(vals, flags, got), vals.numel())
 
     # K2: the batched ICP voxel pass (exact branch, normals in rgb)
     s = 6
@@ -228,10 +266,16 @@ def main() -> int:
     ms, pms = time_in_turns(
         lambda: segment_sum_sorted(vals2, seg2, cap2, impl="cuda"),
         lambda: segment_sum_sorted(vals2, seg2, cap2, impl="torch"))
+    # the library call: index_add_ into capacity + 1 rows (the discard id
+    # is the capacity), float32 like the kernel's output
+    lib_out = torch.zeros((cap2 + 1, vals2.shape[1]), dtype=torch.float32,
+                          device=dev)
+    lib_ms = cuda_ms(lambda: lib_out.zero_().index_add_(0, seg2, vals2), 20)
     report("segment_sum_sorted",
            "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
            "pointcloud_stitching_tpu/kernels/segment_reduce.py:219",
-           (g2 - w2).abs().max().item(), ms, pms)
+           (g2 - w2).abs().max().item(), ms, pms, nbytes(vals2, seg2, g2),
+           vals2.numel(), lib_ms)
 
     # K3: ring ICP NN, 8 pairs of 2048 x 2048, ~10% of refs masked, ties
     rng = np.random.default_rng(1)
@@ -258,10 +302,13 @@ def main() -> int:
     ms, pms = time_in_turns(
         lambda: nn_batched_prepared(q, refT, impl="cuda"),
         lambda: nn_batched_prepared(q, refT, impl="torch"))
+    # 9 operations per pair (3 subtractions, 3 multiplies, 2 adds, 1
+    # compare); no one PyTorch call returns the first-index argmin NN
     report("nn_batched_prepared",
            "pointcloud_stitching_tpu_torch/csrc/nn.cu",
            "pointcloud_stitching_tpu/kernels/nn_pallas.py:172",
-           (gd - wd).abs().max().item(), ms, pms)
+           (gd - wd).abs().max().item(), ms, pms, nbytes(q, refT, gi, gd),
+           9 * q.shape[0] * q.shape[1] * refT.shape[-1])
     del fused, vals, flags, vals6, flags6, g6, w6, got, want
 
     # --- phase 4: the slice, 'auto' against 'torch' ----------------------
@@ -316,7 +363,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/7 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/8 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -340,7 +387,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/7 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/8 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -362,17 +409,7 @@ def main() -> int:
         pipe = StitchingPipeline(cfg, intr, ext_np, device=dev,
                                  update_mode="track")
         pipe(depths)
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                pipe(depths)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        return sum("called a synchronizing CUDA operation" in str(w.message)
-                   for w in caught)
+        return count_syncs(lambda: pipe(depths))
 
     t_plain1 = frame_ms("torch")
     t_auto1 = frame_ms("auto")
@@ -384,7 +421,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/7 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/8 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -392,6 +429,7 @@ def main() -> int:
         f"{peak:.1f} MiB")
 
     registration_phase(dev, kb, report, kernels, card)
+    tsdf_phase(dev, kb, report, kernels, card)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(card)
@@ -453,7 +491,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     T_true = oracle.random_se3(seed=3, max_angle=0.05, max_trans=0.05)
     dst = moved(T_true)
     picks = np.linspace(0, n_src - 1, 4).astype(np.int64)
-    say(f"[7/7 registration] src {n_src} points at a {leaf:.4f} m leaf "
+    say(f"[7/8 registration] src {n_src} points at a {leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -497,10 +535,17 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         f"{n_diff} valid queries differ from brute force")
     ms, pms = time_in_turns(lambda: k4(jlo, jhi, "cuda"),
                             lambda: k4(jlo, jhi, "torch"), reps=5)
+    # the pairs this run's ranges sweep, 9 operations each (as K3)
+    n_q, m_r, qt, rb = q.shape[1], r.shape[1], 1024, 2048
+    t_idx = torch.arange(jlo.shape[1], device=dev)
+    q_in_tile = torch.clamp(n_q - t_idx * qt, max=qt)
+    refs = (torch.clamp((jhi.long() + 1) * rb, max=m_r) - jlo.long() * rb)
+    pairs = int((torch.clamp(refs, min=0) * q_in_tile).sum())
     report("nn_batched_prepared_ranged",
            "pointcloud_stitching_tpu_torch/csrc/nn.cu",
            "pointcloud_stitching_tpu/kernels/nn_pallas.py:300",
-           (gd - wd).abs().max().item(), ms, pms)
+           (gd - wd).abs().max().item(), ms, pms,
+           nbytes(q, refT, jlo, jhi, gi, gd), 9 * pairs)
     del gi, gd, wi, wd, bi, bd, pi, pd, ni, nd, nwi, nwd
 
     # (d): the main path, register_pair + pruned icp_converge
@@ -604,6 +649,360 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         f"{dict(sites)}; "
         f"peak memory register_pair auto {peak_a:.1f} MiB, torch "
         f"{peak_t:.1f} MiB")
+
+
+# --- phase 8: the TSDF scene model ------------------------------------------
+# bench.py's TSDF design point: the scene of its _tsdf_bench (three spheres
+# and two planes, the surface at n . p = off), rendered here with numpy
+TSDF_SCENE = dict(
+    spheres=[((-0.4, 0.1, 1.4), 0.35), ((0.5, -0.2, 1.8), 0.3),
+             ((0.0, 0.45, 1.1), 0.2)],
+    planes=[((0.0, 0.0, -1.0), -2.4), ((0.0, -1.0, 0.0), -0.8)])
+TSDF_NCAM, TSDF_GRID, TSDF_LEAF = 4, (256, 256, 256), 0.01
+TSDF_ORIGIN = (-1.28, -0.6, 0.2)
+TSDF_FX, TSDF_FY = 421.5, 421.1
+KEYFRAMES = 5
+CELL_CAPACITY = 1 << 19
+
+
+def render_depth(fx, fy, ppx, ppy, w, h, T, spheres=(), planes=(),
+                 z_clip=(0.05, 50.0)) -> np.ndarray:
+    """Analytic z-depth [h, w] float32 of the nearest surface along each
+    pixel ray of a pinhole camera at camera-to-world pose T (0 = no hit):
+    the renderer of tests/test_tsdf.py, in float64."""
+    T = np.asarray(T, np.float64)
+    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
+                       np.arange(h, dtype=np.float64))
+    rays = np.stack([(u - ppx) / fx, (v - ppy) / fy, np.ones_like(u)], -1)
+    d = rays @ T[:3, :3].T                  # world directions, z_cam = 1
+    o = T[:3, 3]
+    best = np.full(d.shape[:2], np.inf)
+    for c, r in spheres:
+        c = np.asarray(c, np.float64)
+        a = np.sum(d * d, -1)
+        b = 2.0 * np.sum(d * (o - c), -1)
+        disc = b * b - 4 * a * (np.sum((o - c) ** 2) - r * r)
+        z = np.where(disc >= 0,
+                     (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), np.inf)
+        best = np.minimum(best, np.where(z > z_clip[0], z, np.inf))
+    for n, off in planes:
+        n = np.asarray(n, np.float64)
+        den = d @ n
+        with np.errstate(divide="ignore"):
+            z = np.where(np.abs(den) > 1e-12, (off - o @ n) / den, np.inf)
+        best = np.minimum(best, np.where(z > z_clip[0], z, np.inf))
+    return np.where(np.isfinite(best) & (best < z_clip[1]), best,
+                    0.0).astype(np.float32)
+
+
+def surface_distance(p: np.ndarray) -> np.ndarray:
+    """Distance of points [N, 3] from the nearest analytic surface."""
+    ds = [np.abs(np.linalg.norm(p - np.asarray(c), axis=-1) - r)
+          for c, r in TSDF_SCENE["spheres"]]
+    ds += [np.abs(p @ np.asarray(n) - off) for n, off in TSDF_SCENE["planes"]]
+    return np.min(np.stack(ds), axis=0)
+
+
+def tsdf_rig(k: int):
+    """Keyframe k of the rig: bench.py's four camera poses, the whole rig
+    moved 2 cm along x and 0.5 degrees about y per keyframe, and one dead
+    rectangle per camera. Returns (extrinsics [4, 4, 4] float32, depth
+    [4, H, W] uint16 in mm)."""
+    a = np.radians(0.5 * k)
+    rig = np.eye(4)
+    rig[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]]
+    rig[:3, 3] = [0.02 * k, 0.0, 0.0]
+    exts, ds = [], []
+    for i in range(TSDF_NCAM):
+        ang = 0.12 * (i - 1.5)
+        T = np.eye(4)
+        T[:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                     [-np.sin(ang), 0, np.cos(ang)]]
+        T[:3, 3] = [0.25 * (i - 1.5), 0.0, -0.05 * i]
+        T = (rig @ T).astype(np.float32)
+        d = render_depth(TSDF_FX, TSDF_FY, W / 2.0, H / 2.0, W, H, T,
+                         **TSDF_SCENE)
+        d[140 + 30 * i:220 + 30 * i, 280:420] = 0.0   # dead rectangle
+        exts.append(T)
+        ds.append(d)
+    return np.stack(exts), (np.stack(ds) * 1000.0).astype(np.uint16)
+
+
+def pose_error(T, T_ref):
+    """(translation m, rotation degrees) between two poses."""
+    T, T_ref = np.asarray(T, np.float64), np.asarray(T_ref, np.float64)
+    c = (np.trace(T[:3, :3].T @ T_ref[:3, :3]) - 1.0) / 2.0
+    return (float(np.linalg.norm(T[:3, 3] - T_ref[:3, 3])),
+            float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))))
+
+
+def count_syncs(fn) -> int:
+    """Host syncs that one call of ``fn`` makes."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def median_ms(fn, n: int) -> float:
+    """Median ms of ``n`` synced calls of ``fn`` (after one warm call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def tsdf_phase(dev, kb, report, kernels, card) -> None:
+    """Phase 8: the TSDF scene model (K5) at bench.py's design point."""
+    import tempfile
+
+    import torch
+    from pointcloud_stitching_tpu_torch import Intrinsics
+    from pointcloud_stitching_tpu_torch.kernels.patch_gather import (
+        patch_gather)
+    from pointcloud_stitching_tpu_torch.models import tsdf as TM
+    from pointcloud_stitching_tpu_torch.ops.se3 import se3_inverse
+    from pointcloud_stitching_tpu_torch.ops.surface import weld_mesh
+
+    i1 = Intrinsics.create(fx=TSDF_FX, fy=TSDF_FY, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i1.stack([i1] * (TSDF_NCAM - 1))
+    frames = [tsdf_rig(k) for k in range(KEYFRAMES)]
+    ext_np, depth_np = frames[0]
+    ext = torch.from_numpy(ext_np).to(dev)
+    depth = torch.from_numpy(depth_np).to(dev)
+    color = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (TSDF_NCAM, H, W, 3), dtype=np.uint8)).to(dev)
+
+    def volume(with_rgb=False):
+        return TM.TSDFVolume.create(TSDF_GRID, TSDF_LEAF, origin=TSDF_ORIGIN,
+                                    with_rgb=with_rgb, device=dev)
+
+    # (a) K5 on camera 0's REFINE bricks, with the windows integrate plans
+    vol = volume()
+    depth_raw = depth.to(torch.float32)
+    inv = se3_inverse(ext)
+    shape = TSDF_GRID
+    zero, inf = torch.zeros((), device=dev), torch.full((), np.inf,
+                                                        device=dev)
+    refine = [TM._classify_bricks(depth_raw[c] * 0.001, TM._cam_slice(
+        intr, c), inv[c], shape, vol.origin, vol.leaf, vol.trunc, zero,
+        inf)[2] for c in range(TSDF_NCAM)]
+    n_refine = [int(r.sum()) for r in refine]
+    bsel = torch.nonzero(refine[0])[:, 0]
+    _, pix_ok, uib, vib = TM._brick_pixels(bsel, shape, vol.origin, vol.leaf,
+                                           inv[0], TM._cam_slice(intr, 0),
+                                           W, H)
+    v0, u0, fits = TM._plan_windows(uib, vib, pix_ok.reshape(uib.shape))
+    iv, iu = vib - v0[:, None], uib - u0[:, None]
+    img = depth_raw[0]
+    got = patch_gather(img, v0, u0, iv, iu, impl="cuda")
+    want = patch_gather(img, v0, u0, iv, iu, impl="torch")
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "K5 differs from plain on REFINE bricks")
+    flat = (vib * W + uib).long()
+    fit_ok = fits[:, None] & pix_ok.reshape(uib.shape)
+    check(torch.equal(got[fit_ok], img.reshape(-1)[flat][fit_ok]),
+          "K5 misses the pixel of a voxel in a fitting window")
+    # hand-made windows: negative, unaligned and clamped starts; local
+    # indices in the window, in the alignment slop and outside it
+    rng = np.random.default_rng(8)
+    nh = 4096
+    hv0 = rng.integers(-20, H + 20, nh).astype(np.int32)
+    hu0 = rng.integers(-200, W + 200, nh).astype(np.int32)
+    hv0[:4], hu0[:4] = [-3, H - 2, H - 129, 7], [-130, W - 5, W - 257, 127]
+    hand = [torch.from_numpy(a).to(dev) for a in (
+        hv0, hu0, rng.integers(-10, 140, (nh, 512)).astype(np.int32),
+        rng.integers(-140, 270, (nh, 512)).astype(np.int32))]
+    hg = patch_gather(img, *hand, impl="cuda")
+    hw = patch_gather(img, *hand, impl="torch")
+    torch.cuda.synchronize()
+    check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
+    check(bool((hw == 0).any()) and bool((hw != 0).any()),
+          "hand-made windows missed a case")
+    say(f"[8/8 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+        f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
+        f"{refine[0].numel()}")
+    say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
+        f"REFINE bricks ({int((~fits).sum())} not fitting a window) and on "
+        f"{nh} hand-made windows")
+    ms, pms = time_in_turns(
+        lambda: patch_gather(img, v0, u0, iv, iu, impl="cuda"),
+        lambda: patch_gather(img, v0, u0, iv, iu, impl="torch"))
+    flat_img = img.reshape(-1)
+    lib_ms = cuda_ms(lambda: torch.take(flat_img, flat), 20)
+    report("patch_gather",
+           "pointcloud_stitching_tpu_torch/csrc/patch_gather.cu",
+           "pointcloud_stitching_tpu/kernels/patch_gather.py:118",
+           (got - want).abs().max().item(), ms, pms,
+           nbytes(img, v0, u0, iv, iu, got), 0, lib_ms)
+
+    # (b) integrate: 'auto' (the pruned path through K5) against 'dense'
+    for with_rgb in (False, True):
+        col = color if with_rgb else None
+        runs = {}
+        for method, impl in (("dense", "auto"), ("auto", "auto"),
+                             ("auto", "torch")):
+            kb.reset_launches()
+            v = TM.integrate(volume(with_rgb), depth, intr, ext, color=col,
+                             method=method, kernel_impl=impl)
+            torch.cuda.synchronize()
+            runs[(method, impl)] = (v, dict(kb.LAUNCHES))
+        dense = runs[("dense", "auto")][0]
+        for key in (("auto", "auto"), ("auto", "torch")):
+            v = runs[key][0]
+            same = (torch.equal(v.tsdf, dense.tsdf)
+                    and torch.equal(v.weight, dense.weight)
+                    and (not with_rgb or torch.equal(v.rgb, dense.rgb)))
+            check(same, f"integrate {key} differs from dense "
+                        f"(colour {with_rgb})")
+        want_l = {"patch_gather": TSDF_NCAM * (2 if with_rgb else 1)}
+        check(runs[("auto", "auto")][1] == want_l,
+              f"integrate launches {runs[('auto', 'auto')][1]}, want "
+              f"{want_l}")
+        check(not runs[("auto", "torch")][1] and not runs[("dense",
+                                                           "auto")][1],
+              "integrate launched K5 under kernel_impl='torch' or 'dense'")
+        say(f"    (b) integrate auto == dense bit for bit (tsdf, weight"
+            f"{', rgb' if with_rgb else ''}), also with kernel_impl='torch';"
+            f" K5 launches {want_l['patch_gather']} (colour {with_rgb}); "
+            f"observed voxels {int((dense.weight > 0).sum())}")
+    del runs, dense, v
+
+    # (c) five keyframes with colour, mesh, save, the mesh CLI
+    vol = volume(with_rgb=True)
+    kb.reset_launches()
+    for ext_k, depth_k in frames:
+        vol = TM.integrate(vol, torch.from_numpy(depth_k).to(dev), intr,
+                           torch.from_numpy(ext_k).to(dev), color=color)
+    torch.cuda.synchronize()
+    launches = kb.LAUNCHES.get("patch_gather", 0)
+    check(dict(kb.LAUNCHES) == {"patch_gather": KEYFRAMES * TSDF_NCAM * 2},
+          f"keyframe launches {dict(kb.LAUNCHES)}")
+    kernels["patch_gather"]["launches"] = launches
+    verts, valid, n_active = TM.extract_mesh(vol, CELL_CAPACITY)
+    n_act = int(n_active)
+    check(0 < n_act <= CELL_CAPACITY, f"{n_act} surface cells")
+    vw, fw = weld_mesh(verts, valid)
+    dist = surface_distance(vw.astype(np.float64))
+    p99 = float(np.quantile(dist, 0.99))
+    check(len(fw) > 0 and p99 < TSDF_LEAF,
+          f"mesh vertices p99 {p99} m from the surface")
+    say(f"    (c) {KEYFRAMES} keyframes (K5 launches {launches}): "
+        f"n_active {n_act}, welded mesh {len(vw)} vertices {len(fw)} "
+        f"triangles; vertex distance from the analytic surface median "
+        f"{np.median(dist) * 1e3:.4f} mm p99 {p99 * 1e3:.4f} mm")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "scene_tsdf.npz"), os.path.join(
+            tmp, "scene.ply")
+        TM.save_volume(src, vol)
+        back = TM.load_volume(src, device=dev)
+        check(torch.equal(back.tsdf, vol.tsdf) and torch.equal(back.rgb,
+                                                               vol.rgb),
+              "load_volume differs from the saved volume")
+        env = {k: v for k, v in os.environ.items() if k != "PCS_PLATFORM"}
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "pointcloud_stitching_tpu_torch.tools.mesh_cli", src, out,
+             "--cell-capacity", str(CELL_CAPACITY)], cwd=REPO,
+            capture_output=True, text=True, timeout=300, env=env)
+        t_cli = time.perf_counter() - t
+        check(proc.returncode == 0, f"mesh_cli failed:\n{proc.stderr}")
+        check(os.path.getsize(out) > 0, "mesh_cli wrote no .ply")
+        cli_line = proc.stdout.strip().splitlines()[-1]
+    check(f" {len(fw)} triangles" in cli_line,
+          f"mesh_cli: {cli_line}, in process {len(fw)} triangles")
+    say(f"    (c) save_volume/load_volume equal; mesh_cli (default device) "
+        f"{t_cli:.1f} s as a subprocess: {cli_line.split(': ', 1)[1]}")
+
+    # (d) raycast from camera 0 at stride 2, full and with the prior depth
+    T0 = ext[0]
+    i0 = TM._cam_slice(intr, 0)
+    truth = render_depth(TSDF_FX, TSDF_FY, W / 2.0, H / 2.0, W, H,
+                         ext_np[0], **TSDF_SCENE)[::2, ::2]
+    rc = {}
+    for tag, prior in (("full", None), ("prior", depth[0])):
+        r = TM.raycast(vol, i0, T0, stride=2, prior_depth=prior)
+        ok = r.valid.cpu().numpy() & (truth > 0)
+        err = np.abs(r.depth.cpu().numpy()[ok] - truth[ok])
+        med = float(np.median(err))
+        # the 2.56 m volume fills about a third of camera 0's view
+        check(ok.mean() > 0.25 and med < TSDF_LEAF,
+              f"raycast {tag}: {ok.mean():.3f} valid, median {med} m")
+        rc[tag] = (float(ok.mean()), med)
+    # track from a pose 1 degree and 1 cm off camera 0's (in its frame)
+    a = np.radians(1.0)
+    dT = np.eye(4, dtype=np.float32)
+    dT[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                  [0, 0, 1]]
+    dT[:3, 3] = [0.006, -0.006, 0.005]
+    T_init = torch.from_numpy(ext_np[0] @ dT).to(dev)
+    res = TM.track(vol, depth[0], i0, T_init, prior_window=0.3)
+    e0 = pose_error(T_init.cpu().numpy(), ext_np[0])
+    e1 = pose_error(res.T.cpu().numpy(), ext_np[0])
+    check(e1[0] < 0.005 and e1[1] < 0.2,
+          f"track error {e1[0] * 1e3:.3f} mm {e1[1]:.4f} deg")
+    say(f"    (d) raycast stride 2: valid share / median |depth - analytic| "
+        f"full {rc['full'][0]:.4f} / {rc['full'][1] * 1e3:.4f} mm, prior "
+        f"{rc['prior'][0]:.4f} / {rc['prior'][1] * 1e3:.4f} mm; track from "
+        f"{e0[0] * 1e3:.2f} mm {e0[1]:.3f} deg off to {e1[0] * 1e3:.4f} mm "
+        f"{e1[1]:.4f} deg ({int(res.n_matched)} matched, rms "
+        f"{float(res.rms) * 1e3:.4f} mm)")
+
+    # (e) timings: medians of synced calls
+    def integ(method, with_rgb):
+        state = {"v": volume(with_rgb)}
+
+        def step():
+            state["v"] = TM.integrate(state["v"], depth, intr, ext,
+                                      color=color if with_rgb else None,
+                                      method=method)
+        return step
+
+    t_auto = median_ms(integ("auto", False), 7)
+    t_dense = median_ms(integ("dense", False), 5)
+    t_rgb = median_ms(integ("auto", True), 5)
+    t_auto2 = median_ms(integ("auto", False), 7)
+    t_rc_full = median_ms(lambda: TM.raycast(vol, i0, T0, stride=2), 5)
+    t_rc_prior = median_ms(lambda: TM.raycast(vol, i0, T0, stride=2,
+                                              prior_depth=depth[0]), 5)
+    t_track = median_ms(lambda: TM.track(vol, depth[0], i0, T_init,
+                                         prior_window=0.3), 3)
+    s_auto = count_syncs(integ("auto", False))
+    s_rgb = count_syncs(integ("auto", True))
+    s_dense = count_syncs(integ("dense", False))
+    peaks = {}
+    for tag, method, with_rgb in (("auto", "auto", False),
+                                  ("dense", "dense", False),
+                                  ("auto rgb", "auto", True)):
+        step = integ(method, with_rgb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peaks[tag] = torch.cuda.max_memory_allocated() / 2 ** 20
+    say(f"    (e) timing {card}: ms per integrate auto {t_auto:.3f} / "
+        f"{t_auto2:.3f}, dense {t_dense:.3f}, auto with colour "
+        f"{t_rgb:.3f}; raycast stride 2 full {t_rc_full:.3f} prior "
+        f"{t_rc_prior:.3f}; track {t_track:.3f}; host syncs per integrate "
+        f"auto {s_auto} auto+colour {s_rgb} dense {s_dense}; peak memory "
+        f"MiB {', '.join(f'{k} {v:.1f}' for k, v in peaks.items())}")
 
 
 if __name__ == "__main__":

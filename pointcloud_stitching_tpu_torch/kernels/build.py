@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+The sources in ``csrc/`` are compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``_build/<hash of sources and flags>/``
 inside the package, so a fresh checkout builds everything on its first
 kernel launch and later processes load the cached library.
@@ -17,6 +18,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -27,9 +29,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("segment_reduce.cu", "nn.cu")
+SOURCES = ("segment_reduce.cu", "nn.cu", "patch_gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpcs_kernels.so"
 
 # launches per wrapper (one per wrapper call that launched its kernels)
@@ -62,7 +64,7 @@ def use_kernel(impl: str, t: torch.Tensor) -> bool:
 @dataclasses.dataclass
 class BuildInfo:
     path: Path
-    seconds: float      # wall time of the nvcc run; 0.0 when cached
+    seconds: float      # wall time of the nvcc runs; 0.0 when cached
     log: str            # nvcc's output, including ptxas -v resource usage
     cached: bool
 
@@ -98,16 +100,29 @@ def build() -> BuildInfo:
     # loads a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
+    tmp_dir = tempfile.mkdtemp(dir=out_dir)
+    objs = [os.path.join(tmp_dir, Path(s).stem + ".o") for s in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    cmds.append([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs])
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, o) for c, o, p in zip(cmds, outs, procs) if p.returncode]
+    if not failed:
+        proc = subprocess.run(cmds[-1], capture_output=True, text=True)
+        outs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed = [(cmds[-1], outs[-1])]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    log = "".join(outs)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)}\n{o}" for c, o in failed))
     log_path.write_text(log)
     os.replace(tmp, lib)
     return BuildInfo(lib, seconds, log, cached=False)
@@ -117,6 +132,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes; each returns a cudaError_t as int
 _SIGNATURES = {
+    # img, h, w, v0, u0, iv, iu, nb, out, stream
+    "pcs_patch_gather": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     # vals, flags(u8), n, ch, capacity, out, tile_counts, tile_offsets,
     # tile_info, part(f64), stream
     "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),

@@ -1,7 +1,8 @@
 """Depth image → 3-D point deprojection.
 
-Port of ``pointcloud_stitching_tpu/ops/deproject.py::deproject``
-(librealsense ``rs2_deproject_pixel_to_point``):
+Port of ``pointcloud_stitching_tpu/ops/deproject.py``'s ``deproject``
+(librealsense ``rs2_deproject_pixel_to_point``) and its inverse
+``project``:
 
     x = (u - ppx) / fx,  y = (v - ppy) / fy,  [distortion correction],
     X = x * d,  Y = y * d,  Z = d        (d = depth_raw * depth_scale)
@@ -10,6 +11,11 @@ A pure elementwise map over the [H, W] grid, batched over cameras. Pixels
 with zero (or out-of-range) depth become masked, zeroed points. The
 division in ``(u - ppx) / fx`` is kept as the JAX code has it (a reciprocal
 multiply would differ in the last ulp). Colour mapping is not ported yet.
+
+``project`` forms the pinhole ``x * fx + ppx`` with ``torch.addcmul``: one
+fused multiply-add, as XLA contracts it, so projected pixel coordinates are
+the JAX package's bit for bit on the CPU (a separate multiply and add
+differs in the last bit, which can move ``round(u)`` to the next pixel).
 """
 from __future__ import annotations
 
@@ -96,3 +102,50 @@ def deproject(depth: torch.Tensor, intr: Intrinsics,
     mask = mask.reshape(*batch, h * w)
     xyz = torch.where(mask[..., None], xyz, 0.0)
     return PointCloud(xyz=xyz, mask=mask)
+
+
+def project_planes(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+                   intr: Intrinsics):
+    """``project`` on coordinate planes (camera-frame x, y, z of one shape):
+    returns (u, v, in_front). The intrinsics' fields broadcast against the
+    planes as they are (0-d for one camera)."""
+    in_front = z > 1e-9
+    zs = torch.where(in_front, z, 1.0)
+    x = x / zs
+    y = y / zs
+    if intr.model != int(DistortionModel.NONE):
+        coeffs = intr.coeffs.to(torch.float32)
+    if intr.model == int(DistortionModel.BROWN_CONRADY):
+        x, y = _distort_inverse_brown_conrady(x, y, coeffs)
+    elif intr.model == int(DistortionModel.INVERSE_BROWN_CONRADY):
+        x, y = _undistort_brown_conrady_iterative(x, y, coeffs)
+    elif intr.model == int(DistortionModel.MIXED):
+        x_bc, y_bc = _distort_inverse_brown_conrady(x, y, coeffs)
+        x_ibc, y_ibc = _undistort_brown_conrady_iterative(x, y, coeffs)
+        mid = intr.model_ids.to(torch.int32)
+        is_bc = mid == int(DistortionModel.BROWN_CONRADY)
+        is_ibc = mid == int(DistortionModel.INVERSE_BROWN_CONRADY)
+        x = torch.where(is_bc, x_bc, torch.where(is_ibc, x_ibc, x))
+        y = torch.where(is_bc, y_bc, torch.where(is_ibc, y_ibc, y))
+    u = torch.addcmul(intr.ppx.to(torch.float32), x, intr.fx.to(torch.float32))
+    v = torch.addcmul(intr.ppy.to(torch.float32), y, intr.fy.to(torch.float32))
+    return u, v, in_front
+
+
+def project(xyz: torch.Tensor, intr: Intrinsics):
+    """Project camera-frame points [..., N, 3] to pixel coordinates
+    (librealsense ``rs2_project_point_to_pixel``): normalise by z, apply the
+    forward polynomial for BROWN_CONRADY, invert the stored inverse map by
+    fixed-point iteration for INVERSE_BROWN_CONRADY, select per camera for
+    MIXED, then the pinhole. Returns (uv [..., N, 2] float32, in_front
+    [..., N] bool: z > 1e-9)."""
+    def expand(p):  # [...] -> [..., 1] for broadcasting over N
+        return None if p is None else p[..., None]
+
+    per_point = intr.replace(
+        fx=expand(intr.fx), fy=expand(intr.fy), ppx=expand(intr.ppx),
+        ppy=expand(intr.ppy), coeffs=intr.coeffs[..., None, :],
+        model_ids=expand(intr.model_ids))
+    u, v, in_front = project_planes(xyz[..., 0], xyz[..., 1], xyz[..., 2],
+                                    per_point)
+    return torch.stack([u, v], dim=-1), in_front

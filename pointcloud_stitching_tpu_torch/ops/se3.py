@@ -32,6 +32,11 @@ def transform_cloud(T: torch.Tensor, pc: PointCloud) -> PointCloud:
     return pc.replace(xyz=xyz)
 
 
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Return A @ B (apply B first, then A)."""
+    return mm(A, B)
+
+
 def _bottom_row(like: torch.Tensor, lead) -> torch.Tensor:
     # built on the device (no host-to-device copy, which would sync)
     row = torch.eye(4, dtype=like.dtype, device=like.device)[3:]

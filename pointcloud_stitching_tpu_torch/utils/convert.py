@@ -1,10 +1,11 @@
 """Carry the JAX package's state over to the port.
 
 The stitcher has no weights: its state is the camera intrinsics, the
-per-camera extrinsics and the config. The JAX side hands them over as numpy
-arrays (``np.asarray`` of each field) and these functions build the port's
-counterparts, so both sides compute the same thing. The config crosses as
-JSON through ``StitchConfig.from_jax_json``.
+per-camera extrinsics and the config; the TSDF scene model's is its volume.
+The JAX side hands them over as numpy arrays (``np.asarray`` of each field)
+and these functions build the port's counterparts, so both sides compute
+the same thing. The config crosses as JSON through
+``StitchConfig.from_jax_json``.
 """
 from __future__ import annotations
 
@@ -36,3 +37,19 @@ def extrinsics_from_numpy(a, device=None) -> torch.Tensor:
     if a.shape[-2:] != (4, 4):
         raise ValueError(f"extrinsics must be [..., 4, 4], got {a.shape}")
     return torch.tensor(a, device=device)
+
+
+TSDF_FIELDS = ("tsdf", "weight", "origin", "leaf", "trunc")
+
+
+def tsdf_volume_from_numpy(arrays: dict, device):
+    """The port's ``TSDFVolume`` from a JAX volume's arrays as numpy
+    (``np.asarray`` of ``tsdf``, ``weight``, ``origin``, ``leaf``,
+    ``trunc`` and, for a coloured volume, ``rgb``), on ``device``."""
+    from ..models.tsdf import TSDFVolume
+    t = {k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
+         for k in TSDF_FIELDS}
+    rgb = arrays.get("rgb")
+    if rgb is not None:
+        rgb = torch.tensor(np.asarray(rgb, np.float32), device=device)
+    return TSDFVolume(**t, rgb=rgb)

@@ -8,6 +8,8 @@ tests/conftest.py (which sets JAX up):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,12 +20,15 @@ from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
     block_ranges, nearest_neighbors_pallas_batched, nearest_neighbors_pruned,
     nn_batched_prepared, nn_batched_prepared_ranged, prepare_ref_batched)
+from pointcloud_stitching_tpu_torch.kernels.patch_gather import patch_gather
+from pointcloud_stitching_tpu_torch.models import tsdf as TM
 from pointcloud_stitching_tpu_torch.ops import icp_converge
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     segment_sum_from_flags, segment_sum_sorted)
 from oracle import random_se3, synth_depth_frame
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -220,3 +225,88 @@ def test_pruned_icp_converge_launches_k4(rng, cuda_device):
     assert la == {"nn_batched_prepared": it, "nn_batched_prepared_ranged": it}
     assert not lb
     assert torch.equal(a.T, b.T) and int(b.iterations) == it
+
+
+@pytest.mark.parametrize("h,w", [(480, 848), (48, 64), (520, 1030)])
+def test_patch_gather_kernel_matches_plain(rng, cuda_device, h, w):
+    """K5 against its plain version, bit for bit: starts that are
+    negative, unaligned and clamped at the bottom-right edge; local indices
+    inside the window, in the alignment slop and outside it."""
+    nb = 4096
+    img = rng.uniform(0.1, 5.0, (h, w)).astype(np.float32)
+    v0 = rng.integers(-20, h + 20, nb).astype(np.int32)
+    u0 = rng.integers(-200, w + 200, nb).astype(np.int32)
+    v0[:4] = [-3, h - 2, max(h - 129, 0), 7]
+    u0[:4] = [-130, w - 5, max(w - 257, 0), 127]
+    iv = rng.integers(-10, 140, (nb, 512)).astype(np.int32)
+    iu = rng.integers(-140, 270, (nb, 512)).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (img, v0, u0, iv,
+                                                           iu)]
+    kb.reset_launches()
+    got = patch_gather(*args, impl="cuda")
+    want = patch_gather(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["patch_gather"] == 1
+    assert torch.equal(got, want)
+    assert bool((want == 0).any()) and bool((want != 0).any())
+    empty = patch_gather(args[0], args[1][:0], args[2][:0], args[3][:0],
+                         args[4][:0], impl="cuda")
+    assert empty.shape == (0, 512)
+
+
+def _tsdf_scene(dev, w=160, h=120, f=100.0):
+    """Three cameras of two spheres and a wall (tests/test_tsdf.py's scene,
+    rendered by chip_smoke.py's numpy renderer), with a dead patch in the
+    first frame."""
+    sys.path.insert(0, REPO)
+    from chip_smoke import render_depth
+    scene = dict(spheres=[((-0.15, 0.05, 0.55), 0.12),
+                          ((0.18, -0.08, 0.65), 0.10)],
+                 planes=[((0.0, 0.0, -1.0), -0.9)])
+    exts, ds = [], []
+    for i in range(3):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = [0.08 * (i - 1), 0.02 * i, -0.03 * i]
+        exts.append(T)
+        ds.append(render_depth(f, f, w / 2.0, h / 2.0, w, h, T, **scene))
+    ds[0][20:60, 40:90] = 0.0
+    i0 = P.Intrinsics.create(fx=f, fy=f, ppx=w / 2.0, ppy=h / 2.0, width=w,
+                             height=h, device=dev)
+    depth = torch.from_numpy((np.stack(ds) * 1000).astype(np.uint16))
+    return (depth.to(dev), i0.stack([i0] * 2),
+            torch.from_numpy(np.stack(exts)).to(dev))
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_integrate_auto_matches_dense_on_the_card(rng, cuda_device, with_rgb):
+    """The pruned path through K5 equals the dense oracle bit for bit on
+    a 64^3 volume, two frames deep; K5 launches once per gathered plane
+    per camera, and never under kernel_impl='torch'."""
+    depth, intr, ext = _tsdf_scene(cuda_device)
+    color = (torch.from_numpy(rng.integers(0, 256, (*depth.shape, 3),
+                                           dtype=np.uint8)).to(cuda_device)
+             if with_rgb else None)
+    out = {}
+    for method, impl in (("dense", "auto"), ("auto", "auto"),
+                         ("auto", "torch")):
+        vol = TM.TSDFVolume.create((64, 64, 64), 0.02,
+                                   origin=(-0.64, -0.64, 0.0),
+                                   with_rgb=with_rgb, device=cuda_device)
+        kb.reset_launches()
+        for _ in range(2):
+            vol = TM.integrate(vol, depth, intr, ext, color=color,
+                               method=method, kernel_impl=impl)
+        torch.cuda.synchronize()
+        out[(method, impl)] = (vol, dict(kb.LAUNCHES))
+    dense, _ = out[("dense", "auto")]
+    assert float(dense.weight.sum()) > 0
+    for key in (("auto", "auto"), ("auto", "torch")):
+        vol, _ = out[key]
+        assert torch.equal(vol.tsdf, dense.tsdf)
+        assert torch.equal(vol.weight, dense.weight)
+        if with_rgb:
+            assert torch.equal(vol.rgb, dense.rgb)
+    planes = 2 if with_rgb else 1
+    assert out[("auto", "auto")][1] == {"patch_gather": 2 * 3 * planes}
+    assert not out[("auto", "torch")][1]
+    assert not out[("dense", "auto")][1]

@@ -6,6 +6,7 @@ stated per op; the voxel and ICP ones are those of the port's contract.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,6 +76,14 @@ def test_se3_ops_match_jax(rng, name):
     np.testing.assert_allclose(n(got), n(want), atol=1e-6)
 
 
+def test_se3_compose_matches_jax():
+    # a local generator: the suite-wide rng fixture feeds later tests
+    Ts = _poses(np.random.default_rng(7))
+    np.testing.assert_allclose(
+        n(T.se3_compose(t(Ts), t(Ts[::-1].copy()))),
+        n(JS.se3_compose(jnp.asarray(Ts), jnp.asarray(Ts[::-1]))), atol=1e-6)
+
+
 # --- deproject, decimate, normals ----------------------------------------
 
 _COEFFS = np.array([0.08, -0.03, 0.001, -0.002, 0.005], np.float32)
@@ -100,6 +109,40 @@ def test_deproject_matches_jax(model):
     got = T.deproject(t(depths), pi, 0.001, 0.1, 3.0)
     np.testing.assert_array_equal(n(got.mask), n(want.mask))
     np.testing.assert_allclose(n(got.xyz), n(want.xyz), atol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["none", "brown_conrady",
+                                   "inverse_brown_conrady", "mixed"])
+def test_project_matches_jax(model):
+    """Points in front of, on and behind the camera plane, against the
+    JAX function compiled as the TSDF integrator compiles it: the pinhole
+    is bit for bit (one fused multiply-add, as XLA contracts it), the
+    distortion polynomials within a relative 1e-5 (XLA contracts some of
+    their products into fused multiply-adds; points near the camera plane
+    land thousands of pixels out)."""
+    models = {"none": [0, 0, 0], "brown_conrady": [1, 1, 1],
+              "inverse_brown_conrady": [2, 2, 2], "mixed": [0, 1, 2]}[model]
+    cams = [JIntrinsics.create(fx=50.0 + i, fy=51.0, ppx=31.5, ppy=24.2,
+                               coeffs=_COEFFS * (i + 1), width=64, height=48,
+                               model=DistortionModel(m))
+            for i, m in enumerate(models)]
+    ji = cams[0].stack(cams[1:])
+    rng = np.random.default_rng(11)
+    xyz = rng.uniform(-0.6, 0.6, (3, 200, 3)).astype(np.float32)
+    xyz[..., 2] = rng.uniform(-0.2, 2.0, (3, 200))
+    xyz[:, :5, 2] = 0.0
+    fields = {k: np.asarray(getattr(ji, k))
+              for k in ("fx", "fy", "ppx", "ppy", "coeffs", "model_ids")
+              if getattr(ji, k) is not None}
+    pi = intrinsics_from_numpy(fields, 64, 48, ji.model)
+    wuv, wf = jax.jit(J.project)(jnp.asarray(xyz), ji)
+    guv, gf = T.project(t(xyz), pi)
+    np.testing.assert_array_equal(n(gf), n(wf))
+    front = n(wf)
+    if model == "none":
+        np.testing.assert_array_equal(n(guv), n(wuv))
+    np.testing.assert_allclose(n(guv)[front], n(wuv)[front], rtol=1e-5,
+                               atol=1e-4)
 
 
 def test_decimate_and_grid_normals_match_jax():
