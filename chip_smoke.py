@@ -13,7 +13,15 @@ volume, and checks the five hand-written CUDA kernels on those paths:
      matmuls (no TF32) once a pipeline exists;
   2. build the kernels from csrc/ (nvcc, sm_90a) and print ptxas' report;
   3. each kernel against its plain PyTorch version at the shapes the main
-     path gives it, on the card, then timed in turns with CUDA events;
+     path gives it, on the card, then timed in turns with CUDA events
+     (device time, the queue held by a spinning kernel while the calls are
+     enqueued; the time per call back to back beside it): K2 bit for bit at
+     the ring-ICP shape and at the per-camera 1 cm pass, two launches equal,
+     faster than index_add_, its launch configuration printed; K3 bit for
+     bit at the ring shape (a tie across two reference slices goes to the
+     lower index; S and the grid printed), there at every split count S
+     of 1..8 (the sweep behind ``nn_splits``), and at the registration
+     coarse pass;
   4. the slice: 10 frames in 'track' mode with kernel_impl='auto' and with
      'torch', at the saturated 1 cm leaf and at an unsaturated 6 cm leaf;
      outputs must agree and the kernels' launch counts must show that the
@@ -42,9 +50,12 @@ volume, and checks the five hand-written CUDA kernels on those paths:
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
-written once) over 3.35 TB/s and its operations over 67 TFLOP/s (the H100
-SXM's float32 rate outside the tensor cores), and the time of one PyTorch
-call that computes the same function where there is one.
+written once) over 3.35 TB/s and its operations over the H100 SXM's
+float32 instruction rate (132 SMs x 128 lanes x 1.98 GHz: the NN kernels'
+contract rounds every multiply and add on its own, so each operation is
+one issued instruction and no fused multiply-add counts twice), and the
+time of one PyTorch call that computes the same function where there is
+one.
 
 Any failed check raises and the script exits non-zero. Run from the repo
 root with no arguments: ``python3 chip_smoke.py``. It imports nothing of
@@ -73,7 +84,9 @@ REG_CAP = 131072    # registration cloud slots (docs/KERNELS.md's 131k case)
 ATOL_REG = 1e-6     # registration T, 'auto' vs 'torch'
 MAX_REG_ERR = 0.005  # meters, registered points against the true pose
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA's data sheet)
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# H100 SXM float32 instructions per second outside the tensor cores:
+# 132 SMs x 128 lanes x 1.98 GHz boost (67 TFLOP/s counts an FMA as two)
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
 def say(msg: str) -> None:
@@ -101,11 +114,21 @@ def flagship_cfg(StitchConfig, **kw):
     return StitchConfig(**{**base, **kw})
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of ``fn`` over ``reps`` calls, by CUDA events."""
+PREFILL_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at 1.98 GHz
+
+
+def cuda_ms(fn, reps: int, prefill: bool = True) -> float:
+    """Mean device ms per call of ``fn`` over ``reps`` calls, by CUDA events.
+
+    With ``prefill`` a spinning kernel holds the card while the host
+    enqueues the calls, so the events time the device work back to back
+    and not the wrapper's Python; without it the time per call is the
+    larger of the two (what a host-bound caller sees)."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prefill:
+        torch.cuda._sleep(PREFILL_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -115,7 +138,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def time_in_turns(kernel_fn, plain_fn, reps: int = 20):
-    """(kernel ms, plain ms): warm up, then plain, kernel, kernel, plain."""
+    """(kernel ms, plain ms, kernel ms per call): warm up, then plain,
+    kernel, kernel, plain with the queue prefilled (device time), then the
+    kernel's calls back to back without it (as PR 1-3 timed them)."""
     import torch
     for _ in range(3):
         kernel_fn()
@@ -125,7 +150,8 @@ def time_in_turns(kernel_fn, plain_fn, reps: int = 20):
     k1 = cuda_ms(kernel_fn, reps)
     k2 = cuda_ms(kernel_fn, reps)
     p2 = cuda_ms(plain_fn, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    call = cuda_ms(kernel_fn, reps, prefill=False)
+    return (k1 + k2) / 2, (p1 + p2) / 2, call
 
 
 def check(cond: bool, what: str) -> None:
@@ -135,13 +161,83 @@ def check(cond: bool, what: str) -> None:
 
 def bound(nbytes: float, ops: float):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move ``nbytes`` and do ``ops`` float32 operations."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    to move ``nbytes`` and issue ``ops`` float32 instructions."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def kernel_inputs(dev):
+    """The flagship scene and phase 3's inputs at the shapes the main path
+    gives each kernel, made by the ``pointcloud_stitching_tpu_torch`` that
+    comes first on ``sys.path`` (scripts/profile_tree.py times another
+    tree's kernels on them)."""
+    import types
+
+    import torch
+    from pointcloud_stitching_tpu_torch import Intrinsics
+    from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
+        prepare_ref_batched)
+    from pointcloud_stitching_tpu_torch.ops import (deproject, fuse_batched,
+                                                    grid_normals, se3_apply)
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    from pointcloud_stitching_tpu_torch.utils.types import PointCloud
+
+    ext_np, depths_np = flagship_scene()
+    depths = torch.from_numpy(depths_np).to(dev)
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i0.stack([i0] * (NCAM - 1))
+    raw = deproject(depths, intr, depth_scale=0.001, z_min=0.1, z_max=10.0)
+    fused = fuse_batched(raw.replace(xyz=se3_apply(
+        torch.from_numpy(ext_np).to(dev), raw.xyz)))
+    # K1: the global pass, packed branch at 1 cm and exact branch at 6 cm
+    ijk = V.voxel_indices(fused.xyz, fused.mask, 0.01)
+    flags, vals, _ = V._sorted_segments_packed(fused, 0.01, ijk)
+    flags6, vals6 = V._sorted_segments(fused, 0.06)
+
+    # K2: the batched ICP voxel pass (exact branch, normals in rgb), and
+    # the per-camera 1 cm pass of phase 4's second run (packed branch), in
+    # _reduce_batched's flat layout: camera c owns ids
+    # [c * (cap + 1), c * (cap + 1) + cap], the last its discard
+    def flat_segments(flags_b, vals_b, cap_cam):
+        seg_b = (V._flags_to_seg(flags_b, cap_cam)
+                 + torch.arange(NCAM, dtype=torch.int32, device=dev)[:, None]
+                 * (cap_cam + 1)).reshape(-1)
+        return (vals_b.reshape(-1, vals_b.shape[-1]), seg_b,
+                NCAM * (cap_cam + 1))
+
+    s = 6
+    sub_xyz = raw.xyz.reshape(NCAM, H, W, 3)[:, ::s, ::s]
+    sub_mask = raw.mask.reshape(NCAM, H, W)[:, ::s, ::s]
+    nrm, nvalid = grid_normals(sub_xyz, sub_mask)
+    sub = PointCloud(xyz=sub_xyz.reshape(NCAM, -1, 3),
+                     mask=(sub_mask & nvalid).reshape(NCAM, -1),
+                     rgb=nrm.reshape(NCAM, -1, 3))
+    k2 = [("ring ICP", *flat_segments(*V._sorted_segments(sub, 0.07), 2048))]
+    ijkc = V.voxel_indices(raw.xyz, raw.mask, 0.01)
+    flagsc, valsc, _ = V._sorted_segments_packed(raw, 0.01, ijkc)
+    k2.append(("1 cm camera pass", *flat_segments(flagsc, valsc, 131072)))
+
+    # K3: ring ICP NN, 8 pairs of 2048 x 2048, ~10% of refs masked, and an
+    # exact tie (refs 700 and 1500; query 0 sits on them: 700 must win)
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.uniform(-2, 2, (NCAM, 2048, 3)).astype(
+        np.float32)).to(dev)
+    r_np = rng.uniform(-2, 2, (NCAM, 2048, 3)).astype(np.float32)
+    r_np[:, 1500] = r_np[:, 700]
+    r = torch.from_numpy(r_np).to(dev)
+    rmask = torch.from_numpy(rng.random((NCAM, 2048)) > 0.1).to(dev)
+    rmask[:, 700] = True
+    rmask[:, 1500] = True
+    q[:, 0] = r[:, 700]
+    return types.SimpleNamespace(
+        ext_np=ext_np, depths_np=depths_np, depths=depths, intr=intr,
+        k1=(vals, flags), k1_exact=(vals6, flags6), k2=k2,
+        k3=(q, r, rmask, prepare_ref_batched(r, rmask)), rng=rng)
 
 
 def main() -> int:
@@ -153,17 +249,12 @@ def main() -> int:
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import oracle
-    from pointcloud_stitching_tpu_torch import (Intrinsics, StitchConfig,
-                                                StitchingPipeline)
+    from pointcloud_stitching_tpu_torch import StitchConfig, StitchingPipeline
     from pointcloud_stitching_tpu_torch.kernels import build as kb
     from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
-        nn_batched_prepared, prepare_ref_batched)
+        NN_QUERY_TILE, nn_batched_prepared, nn_splits, prepare_ref_batched)
     from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
-        segment_sum_from_flags, segment_sum_sorted)
-    from pointcloud_stitching_tpu_torch.ops import (deproject, fuse_batched,
-                                                    grid_normals, se3_apply)
-    from pointcloud_stitching_tpu_torch.ops import voxel as V
-    from pointcloud_stitching_tpu_torch.utils.types import PointCloud
+        K2_TILE_ROWS, segment_sum_from_flags, segment_sum_sorted)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -186,18 +277,14 @@ def main() -> int:
             say("    " + line.strip())
 
     # --- phase 3: kernels vs plain versions at main-path shapes ---------
-    ext_np, depths_np = flagship_scene()
-    ext = torch.from_numpy(ext_np).to(dev)
-    depths = torch.from_numpy(depths_np).to(dev)
-    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
-                           width=W, height=H, device=dev)
-    intr = i0.stack([i0] * (NCAM - 1))
-    raw = deproject(depths, intr, depth_scale=0.001, z_min=0.1, z_max=10.0)
-    fused = fuse_batched(raw.replace(xyz=se3_apply(ext, raw.xyz)))
+    ki = kernel_inputs(dev)
+    ext_np, depths_np, depths, intr = ki.ext_np, ki.depths_np, ki.depths, \
+        ki.intr
     kernels = {}
 
-    def report(name, source, replaces, err, ms, plain_ms, moved, ops,
+    def report(name, source, replaces, err, times, moved, ops,
                library_ms=None):
+        ms, plain_ms, call_ms = times
         bound_ms, bound_by = bound(moved, ops)
         kernels[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=0,
@@ -205,14 +292,14 @@ def main() -> int:
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        say(f"    {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        say(f"    {name}: kernel {ms:.4f} ms (per call back to back "
+            f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
             f"{ops / 1e6:.2f} M ops), library call {lib}, max |kernel - "
             f"plain| {float(err):.3g}")
 
     # K1, packed branch: integer channels, must match bit for bit
-    ijk = V.voxel_indices(fused.xyz, fused.mask, 0.01)
-    flags, vals, _ = V._sorted_segments_packed(fused, 0.01, ijk)
+    vals, flags = ki.k1
     cap = 262144
     got = segment_sum_from_flags(vals, flags, cap, impl="cuda")
     want = segment_sum_from_flags(vals, flags, cap, impl="torch")
@@ -222,7 +309,7 @@ def main() -> int:
     say(f"[3/8 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments)")
     # K1, exact branch at the 6 cm leaf: float channels
-    flags6, vals6 = V._sorted_segments(fused, 0.06)
+    vals6, flags6 = ki.k1_exact
     g6 = segment_sum_from_flags(vals6, flags6, cap, impl="cuda")
     w6 = segment_sum_from_flags(vals6, flags6, cap, impl="torch")
     n6 = torch.clamp(w6[:, 3:4], min=1.0)
@@ -231,64 +318,63 @@ def main() -> int:
     err_k1 = max(err_k1, (g6 - w6).abs().max().item())
     say(f"    K1 exact {tuple(vals6.shape)}: centroids within rtol "
         f"{RTOL_F32}; bitwise equal: {torch.equal(g6, w6)}")
-    ms, pms = time_in_turns(
+    times = time_in_turns(
         lambda: segment_sum_from_flags(vals, flags, cap, impl="cuda"),
         lambda: segment_sum_from_flags(vals, flags, cap, impl="torch"))
     # no one PyTorch call: the segment ids need a cumsum of the flags first
     report("segment_sum_from_flags",
            "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
            "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
-           err_k1, ms, pms, nbytes(vals, flags, got), vals.numel())
+           err_k1, times, nbytes(vals, flags, got), vals.numel())
+    del vals, flags, vals6, flags6, g6, w6, got, want
 
-    # K2: the batched ICP voxel pass (exact branch, normals in rgb)
-    s = 6
-    sub_xyz = raw.xyz.reshape(NCAM, H, W, 3)[:, ::s, ::s]
-    sub_mask = raw.mask.reshape(NCAM, H, W)[:, ::s, ::s]
-    nrm, nvalid = grid_normals(sub_xyz, sub_mask)
-    sub = PointCloud(xyz=sub_xyz.reshape(NCAM, -1, 3),
-                     mask=(sub_mask & nvalid).reshape(NCAM, -1),
-                     rgb=nrm.reshape(NCAM, -1, 3))
-    flags2, vals2 = V._sorted_segments(sub, 0.07)
-    icap = 2048
-    seg2 = (V._flags_to_seg(flags2, icap)
-            + torch.arange(NCAM, dtype=torch.int32, device=dev)[:, None]
-            * (icap + 1)).reshape(-1)
-    vals2 = vals2.reshape(-1, vals2.shape[-1])
-    cap2 = NCAM * (icap + 1)
-    g2 = segment_sum_sorted(vals2, seg2, cap2, impl="cuda")
-    w2 = segment_sum_sorted(vals2, seg2, cap2, impl="torch")
-    check(torch.equal(g2[:, 3], w2[:, 3]), "K2 counts differ from plain")
-    n2 = torch.clamp(w2[:, 3:4], min=1.0)
-    torch.testing.assert_close(g2 / n2, w2 / n2, rtol=RTOL_F32,
-                               atol=ATOL_F32)
-    say(f"    K2 {tuple(vals2.shape)} cap {cap2}: counts equal, centroids "
-        f"within rtol {RTOL_F32}; bitwise equal: {torch.equal(g2, w2)}")
-    ms, pms = time_in_turns(
-        lambda: segment_sum_sorted(vals2, seg2, cap2, impl="cuda"),
-        lambda: segment_sum_sorted(vals2, seg2, cap2, impl="torch"))
-    # the library call: index_add_ into capacity + 1 rows (the discard id
-    # is the capacity), float32 like the kernel's output
-    lib_out = torch.zeros((cap2 + 1, vals2.shape[1]), dtype=torch.float32,
-                          device=dev)
-    lib_ms = cuda_ms(lambda: lib_out.zero_().index_add_(0, seg2, vals2), 20)
+    # K2 at the ring-ICP shape and at the per-camera 1 cm pass
+    lib = kb.library()
+    check(lib.pcs_nn_query_tile() == NN_QUERY_TILE,
+          "K3's query tile differs between csrc/nn.cu and nn_pallas.py")
+    check(lib.pcs_segsum_sorted_tile_rows() == K2_TILE_ROWS,
+          "K2's tile differs between csrc/segment_reduce.cu and "
+          "segment_reduce.py")
+    k2_cases = []
+    for tag, v_, s_, c_ in ki.k2:
+        g = segment_sum_sorted(v_, s_, c_, impl="cuda")
+        g_again = segment_sum_sorted(v_, s_, c_, impl="cuda")
+        w = segment_sum_sorted(v_, s_, c_, impl="torch")
+        torch.cuda.synchronize()
+        check(torch.equal(g, w), f"K2 {tag}: sums differ from plain")
+        check(torch.equal(g, g_again), f"K2 {tag}: two launches differ")
+        n_, ch_ = v_.shape
+        tiles = max(1, -(-n_ // K2_TILE_ROWS))
+        times = time_in_turns(
+            lambda: segment_sum_sorted(v_, s_, c_, impl="cuda"),
+            lambda: segment_sum_sorted(v_, s_, c_, impl="torch"))
+        ms, pms, call_ms = times
+        # the library call: index_add_ into capacity + 1 rows (the discard
+        # id is the capacity), float32 like the kernel's output
+        lib_out = torch.zeros((c_ + 1, ch_), dtype=torch.float32, device=dev)
+        lib_ms = cuda_ms(lambda: lib_out.zero_().index_add_(0, s_, v_), 20)
+        k2_cases.append((v_, s_, g, (g - w).abs().max().item(), times,
+                         lib_ms))
+        b_ms, _ = bound(nbytes(v_, s_, g), v_.numel())
+        say(f"    K2 {tag} {tuple(v_.shape)} into {c_} slots: bitwise equal to "
+            f"plain, two launches bitwise equal; 1 launch of {tiles} blocks x "
+            f"{lib.pcs_segsum_sorted_threads()} threads, {K2_TILE_ROWS} rows "
+            f"per block, {lib.pcs_segsum_sorted_smem(ch_)} B dynamic smem; "
+            f"kernel {ms:.4f} ms (per call back to back {call_ms:.4f} ms), "
+            f"plain {pms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms")
+    v_, s_, g, err_k2, times, lib_ms = k2_cases[0]
+    check(times[0] < lib_ms, f"K2 at the ring-ICP shape ({times[0]:.4f} ms)"
+                             f" is not faster than index_add_ ({lib_ms:.4f}"
+                             f" ms)")
     report("segment_sum_sorted",
            "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
            "pointcloud_stitching_tpu/kernels/segment_reduce.py:219",
-           (g2 - w2).abs().max().item(), ms, pms, nbytes(vals2, seg2, g2),
-           vals2.numel(), lib_ms)
+           err_k2, times, nbytes(v_, s_, g), v_.numel(), lib_ms)
+    del k2_cases, ki.k2, g, g_again, w
 
-    # K3: ring ICP NN, 8 pairs of 2048 x 2048, ~10% of refs masked, ties
-    rng = np.random.default_rng(1)
-    q = torch.from_numpy(rng.uniform(-2, 2, (NCAM, 2048, 3)).astype(
-        np.float32)).to(dev)
-    r_np = rng.uniform(-2, 2, (NCAM, 2048, 3)).astype(np.float32)
-    r_np[:, 1500] = r_np[:, 700]           # an exact tie: 700 must win
-    r = torch.from_numpy(r_np).to(dev)
-    rmask = torch.from_numpy(rng.random((NCAM, 2048)) > 0.1).to(dev)
-    rmask[:, 700] = True
-    rmask[:, 1500] = True
-    q[:, 0] = r[:, 700]
-    refT = prepare_ref_batched(r, rmask)
+    # K3: ring ICP NN, 8 pairs of 2048 x 2048
+    q, r, rmask, refT = ki.k3
     gi, gd = nn_batched_prepared(q, refT, impl="cuda")
     wi, wd = nn_batched_prepared(q, refT, impl="torch")
     torch.cuda.synchronize()
@@ -297,9 +383,25 @@ def main() -> int:
     check(bool((gi[:, 0] == 700).all()), "K3 tie did not go to the first")
     check(not bool(rmask.gather(1, gi.long()).logical_not().any()),
           "K3 matched a masked reference")
+
+    def nn_grid(b_, n_, m_):
+        sp = nn_splits(b_, n_, m_)
+        grid = (sp, -(-n_ // NN_QUERY_TILE), b_)
+        return sp, grid, grid[0] * grid[1] * grid[2]
+
+    def slice_of(ref, sp_, m_=2048):
+        """The slice [m k / S, m (k + 1) / S) that holds reference ``ref``."""
+        return sum(m_ * k // sp_ <= ref for k in range(1, sp_))
+
+    sp, grid, blocks = nn_grid(*q.shape[:2], refT.shape[-1])
+    check(slice_of(700, sp) < slice_of(1500, sp),
+          "the tied references lie in one slice")
+    check(blocks > 64, f"K3 launches only {blocks} blocks at the ring shape")
     say(f"    K3 {tuple(q.shape)} vs {tuple(r.shape)}: idx equal, d2 bitwise "
-        f"equal, first index wins the tie")
-    ms, pms = time_in_turns(
+        f"equal, first index wins the tie (refs 700 and 1500 lie in slices "
+        f"{slice_of(700, sp)} and {slice_of(1500, sp)}); S = {sp} splits, grid "
+        f"{grid} = {blocks} blocks of 128 threads in clusters of {sp}")
+    times = time_in_turns(
         lambda: nn_batched_prepared(q, refT, impl="cuda"),
         lambda: nn_batched_prepared(q, refT, impl="torch"))
     # 9 operations per pair (3 subtractions, 3 multiplies, 2 adds, 1
@@ -307,9 +409,50 @@ def main() -> int:
     report("nn_batched_prepared",
            "pointcloud_stitching_tpu_torch/csrc/nn.cu",
            "pointcloud_stitching_tpu/kernels/nn_pallas.py:172",
-           (gd - wd).abs().max().item(), ms, pms, nbytes(q, refT, gi, gd),
+           (gd - wd).abs().max().item(), times, nbytes(q, refT, gi, gd),
            9 * q.shape[0] * q.shape[1] * refT.shape[-1])
-    del fused, vals, flags, vals6, flags6, g6, w6, got, want
+    # the split count behind nn_splits' choice: the kernel at every S the
+    # cluster allows, launched directly (launches not counted)
+    b3, n3, m3 = q.shape[0], q.shape[1], refT.shape[-1]
+    sweep = []
+    for s_k in range(1, 9):
+        def launch(s_k=s_k):
+            kb.check(lib.pcs_nn_batched(
+                q.data_ptr(), refT.data_ptr(), b3, n3, m3, s_k,
+                gi.data_ptr(), gd.data_ptr(), kb.stream_handle(q)),
+                "K3 sweep")
+        launch()
+        torch.cuda.synchronize()
+        check(torch.equal(gi, wi) and torch.equal(gd, wd),
+              f"K3 at S = {s_k} differs from plain")
+        launch()
+        sweep.append(f"{s_k}: {cuda_ms(launch, 20):.4f}")
+    say(f"    K3 by split count S (ms, device, {b3 * -(-n3 // NN_QUERY_TILE)}"
+        f" query tiles; nn_splits picks {sp}), each equal to plain: "
+        f"{', '.join(sweep)}")
+    # K3 at the registration coarse pass: 131072 queries x 8192 references
+    rng = ki.rng
+    qc = torch.from_numpy(rng.uniform(-2, 2, (1, REG_CAP, 3)).astype(
+        np.float32)).to(dev)
+    rc = torch.from_numpy(rng.uniform(-2, 2, (1, 8192, 3)).astype(
+        np.float32)).to(dev)
+    refTc = prepare_ref_batched(rc, torch.from_numpy(
+        rng.random((1, 8192)) > 0.1).to(dev))
+    ci, cd = nn_batched_prepared(qc, refTc, impl="cuda")
+    wci, wcd = nn_batched_prepared(qc, refTc, impl="torch")
+    torch.cuda.synchronize()
+    check(torch.equal(ci, wci) and torch.equal(cd, wcd),
+          "K3 at the coarse shape differs from plain")
+    c_ms, c_pms, c_call = time_in_turns(
+        lambda: nn_batched_prepared(qc, refTc, impl="cuda"),
+        lambda: nn_batched_prepared(qc, refTc, impl="torch"), reps=5)
+    spc, gridc, blocksc = nn_grid(1, REG_CAP, 8192)
+    c_bound, _ = bound(nbytes(qc, refTc, ci, cd), 9 * REG_CAP * 8192)
+    say(f"    K3 coarse {tuple(qc.shape)} vs {tuple(rc.shape)}: idx equal, d2 "
+        f"bitwise equal; S = {spc}, grid {gridc} = {blocksc} blocks; kernel "
+        f"{c_ms:.4f} ms (per call back to back {c_call:.4f} ms), plain "
+        f"{c_pms:.4f} ms, bound {c_bound:.4f} ms")
+    del qc, rc, refTc, ci, cd, wci, wcd, ki
 
     # --- phase 4: the slice, 'auto' against 'torch' ----------------------
     def run(impl: str, **overrides):
@@ -533,8 +676,9 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         f"{int(qm.sum())} valid queries")
     say(f"    (c) K4 with ranges cut to one block: equal to plain, "
         f"{n_diff} valid queries differ from brute force")
-    ms, pms = time_in_turns(lambda: k4(jlo, jhi, "cuda"),
-                            lambda: k4(jlo, jhi, "torch"), reps=5)
+    times = time_in_turns(lambda: k4(jlo, jhi, "cuda"),
+                          lambda: k4(jlo, jhi, "torch"), reps=5)
+    ms, pms, _ = times
     # the pairs this run's ranges sweep, 9 operations each (as K3)
     n_q, m_r, qt, rb = q.shape[1], r.shape[1], 1024, 2048
     t_idx = torch.arange(jlo.shape[1], device=dev)
@@ -544,7 +688,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     report("nn_batched_prepared_ranged",
            "pointcloud_stitching_tpu_torch/csrc/nn.cu",
            "pointcloud_stitching_tpu/kernels/nn_pallas.py:300",
-           (gd - wd).abs().max().item(), ms, pms,
+           (gd - wd).abs().max().item(), times,
            nbytes(q, refT, jlo, jhi, gi, gd), 9 * pairs)
     del gi, gd, wi, wd, bi, bd, pi, pd, ni, nd, nwi, nwd
 
@@ -624,7 +768,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
                          max_corr_dist=0.25, nn_impl=impl, prune=prune)
         fn()
         torch.cuda.synchronize()
-        return cuda_ms(fn, reps) / k
+        return cuda_ms(fn, reps, prefill=False) / k
 
     t_pruned = iteration_ms("auto", True, 4)
     t_brute = iteration_ms("auto", False, 2)
@@ -841,7 +985,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
         f"REFINE bricks ({int((~fits).sum())} not fitting a window) and on "
         f"{nh} hand-made windows")
-    ms, pms = time_in_turns(
+    times = time_in_turns(
         lambda: patch_gather(img, v0, u0, iv, iu, impl="cuda"),
         lambda: patch_gather(img, v0, u0, iv, iu, impl="torch"))
     flat_img = img.reshape(-1)
@@ -849,7 +993,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     report("patch_gather",
            "pointcloud_stitching_tpu_torch/csrc/patch_gather.cu",
            "pointcloud_stitching_tpu/kernels/patch_gather.py:118",
-           (got - want).abs().max().item(), ms, pms,
+           (got - want).abs().max().item(), times,
            nbytes(img, v0, u0, iv, iu, got), 0, lib_ms)
 
     # (b) integrate: 'auto' (the pruned path through K5) against 'dense'

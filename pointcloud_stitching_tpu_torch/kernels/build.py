@@ -137,10 +137,11 @@ _SIGNATURES = {
     # vals, flags(u8), n, ch, capacity, out, tile_counts, tile_offsets,
     # tile_info, part(f64), stream
     "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    # vals, seg(i32), n, ch, capacity, out, tile_info, part(f64), stream
-    "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # query, refT, b, n, m, idx, d2, stream
-    "pcs_nn_batched": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # vals, seg(i32), n, ch, capacity, out, state(i32), xbuf(f64),
+    # abuf(f64), stream
+    "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # query, refT, b, n, m, splits, idx, d2, stream
+    "pcs_nn_batched": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
     # query, refT, jlo, jhi, b, n, m, query_tile, ref_block, idx, d2, stream
     "pcs_nn_batched_ranged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                               _P),
@@ -158,8 +159,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        lib.pcs_segsum_tile_rows.argtypes = []
-        lib.pcs_segsum_tile_rows.restype = ctypes.c_int
+        for name in ("pcs_segsum_tile_rows", "pcs_segsum_sorted_tile_rows",
+                     "pcs_segsum_sorted_threads", "pcs_nn_query_tile"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.pcs_segsum_sorted_smem.argtypes = [ctypes.c_int]
+        lib.pcs_segsum_sorted_smem.restype = ctypes.c_int
         lib.pcs_error_string.argtypes = [ctypes.c_int]
         lib.pcs_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -174,5 +179,7 @@ def check(err: int, what: str) -> None:
 
 
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of ``t``'s device, as a raw handle (the
+    call PyTorch's generated kernels use: no Stream object is built)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 

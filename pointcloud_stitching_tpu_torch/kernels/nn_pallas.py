@@ -5,7 +5,10 @@ the reference's name so that each function has an obvious counterpart).
 ``prepare_ref_batched`` masks and transposes the reference cloud once per
 ICP call; ``nn_batched_prepared`` runs the search against it, launching the
 hand-written kernel of ``csrc/nn.cu`` for CUDA tensors and the plain
-version below for CPU tensors or ``impl="torch"``.
+version below for CPU tensors or ``impl="torch"``. The kernel splits the
+references into ``nn_splits(B, N, M)`` ascending slices, one block of a
+thread-block cluster each, where the query tiles alone would leave SMs
+idle.
 
 ``nearest_neighbors_pruned`` is the registration-scale search: a K3 pass
 over a stride-subsampled reference bounds each query's NN distance,
@@ -30,6 +33,29 @@ from .build import LAUNCHES, check, library, stream_handle, use_kernel
 
 _FAR = 1e12  # coordinate sentinel for invalid reference points
 _PLAIN_REF_BLOCK = 1024
+
+# K3's launch shape (csrc/nn.cu): queries per block, the most reference
+# splits it is given (a cluster holds up to 8 blocks, but clusters of 8
+# land unevenly on the SMs: at the ring shape S = 8 runs slower than S = 7
+# in chip_smoke.py's sweep of S, PERF.md), and the SMs of the H100 it
+# targets.
+NN_QUERY_TILE = 512
+NN_MAX_SPLITS = 7
+H100_SMS = 132
+
+
+def nn_splits(b: int, n: int, m: int) -> int:
+    """How many contiguous reference slices K3 sweeps in parallel.
+
+    The query tiles of b x n queries fill ``b * ceil(n / NN_QUERY_TILE)``
+    blocks. Where that is at least the card's SMs, S = 1; otherwise S is
+    enough to cover the SMs about twice, at most NN_MAX_SPLITS and at most
+    m, so that every slice holds a reference.
+    """
+    tiles = b * -(-n // NN_QUERY_TILE)
+    if tiles >= H100_SMS:
+        return 1
+    return max(1, min(NN_MAX_SPLITS, m, -(-2 * H100_SMS // tiles)))
 
 
 def prepare_ref_batched(ref: torch.Tensor,
@@ -101,8 +127,8 @@ def nn_batched_prepared(query: torch.Tensor, refT: torch.Tensor,
     d2 = torch.empty((b, n), dtype=torch.float32, device=query.device)
     with torch.cuda.device(query.device):
         err = library().pcs_nn_batched(
-            query.data_ptr(), refT.data_ptr(), b, n, m, idx.data_ptr(),
-            d2.data_ptr(), stream_handle(query))
+            query.data_ptr(), refT.data_ptr(), b, n, m, nn_splits(b, n, m),
+            idx.data_ptr(), d2.data_ptr(), stream_handle(query))
     check(err, "nn_batched_prepared")
     LAUNCHES["nn_batched_prepared"] += 1
     return idx, d2

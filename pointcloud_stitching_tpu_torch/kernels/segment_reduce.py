@@ -7,8 +7,11 @@ keys. Two entry points, as in the JAX package:
   * ``segment_sum_from_flags`` (K1): segment ids are ``cumsum(flags) - 1``,
     derived inside the kernel from the boundary flags; used by the global
     (unbatched) voxel pass.
-  * ``segment_sum_sorted`` (K2): precomputed sorted ids that step by at
-    most one, discard id = capacity; used by the flattened batched pass.
+  * ``segment_sum_sorted`` (K2): precomputed nondecreasing ids (they may
+    jump, as the flattened camera batch makes them), discard id =
+    capacity; used by the flattened batched pass. Its kernel is one launch:
+    a segmented reduction inside each tile and a decoupled look-back for
+    the runs that cross tiles.
 
 Both drop ids outside ``[0, capacity)``. For a CUDA tensor they launch the
 hand-written kernels of ``csrc/segment_reduce.cu`` (see the design note
@@ -29,6 +32,31 @@ import torch
 from .build import LAUNCHES, check, library, stream_handle, use_kernel
 
 MAX_CHANNELS = 16
+
+
+# rows per K2 block (csrc/segment_reduce.cu K2_TILE; chip_smoke.py checks
+# that the two agree)
+K2_TILE_ROWS = 1024
+
+# K2's scratch, per (device, stream), allocated once and grown with the tile
+# count: the look-back state ([3 + tiles] int32, zero; the kernel's last
+# block leaves it zero) and the tiles' published partials ([2, tiles, 16]
+# float64), with their addresses. One stream runs its calls in order, so
+# they can share it; another stream gets its own.
+_SCRATCH: dict = {}
+
+
+def _k2_scratch(dev: torch.device, stream: int, ntiles: int):
+    key = (dev.index, stream)
+    sc = _SCRATCH.get(key)
+    if sc is None or sc[0] < ntiles:
+        tiles = max(ntiles, 1024)
+        state = torch.zeros((tiles + 3,), dtype=torch.int32, device=dev)
+        part = torch.empty((2, tiles, MAX_CHANNELS), dtype=torch.float64,
+                           device=dev)
+        sc = _SCRATCH[key] = (tiles, state, part, state.data_ptr(),
+                              part[0].data_ptr(), part[1].data_ptr())
+    return sc[3:]
 
 
 def _discard_out_of_range(seg: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -110,7 +138,10 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor, capacity: int,
     Args:
       vals: [N, ch] float32; discarded rows should be zeroed.
       seg: [N] int32, nondecreasing (the form a cumsum of boundaries
-        produces), with any suffix at the discard id ``capacity``.
+        produces; ids may jump), with any suffix at the discard id
+        ``capacity``. Rows with ids outside [0, capacity) drop; slots that
+        no row reaches are 0. Where an id decreases, the kernel writes NaN
+        into every slot (the plain version sums such ids all the same).
     Returns [capacity, ch] float32 sums.
     """
     _check_vals(vals, capacity)
@@ -127,18 +158,16 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor, capacity: int,
     vals = vals.contiguous()
     seg = seg.contiguous()
     n, ch = vals.shape
-    lib = library()
-    ntiles = -(-n // lib.pcs_segsum_tile_rows())
+    if capacity * ch >= 2 ** 31:
+        raise ValueError(f"capacity x channels {capacity} x {ch} >= 2^31")
     dev = vals.device
+    stream = stream_handle(vals)
+    state, xbuf, abuf = _k2_scratch(dev, stream, -(-n // K2_TILE_ROWS))
     out = torch.empty((capacity, ch), dtype=torch.float32, device=dev)
-    tile_info = torch.empty((max(ntiles, 1) * 3,), dtype=torch.int32,
-                            device=dev)
-    part = torch.empty((2 * max(ntiles, 1), ch), dtype=torch.float64,
-                       device=dev)
     with torch.cuda.device(dev):
-        err = lib.pcs_segsum_sorted(
+        err = library().pcs_segsum_sorted(
             vals.data_ptr(), seg.data_ptr(), n, ch, capacity, out.data_ptr(),
-            tile_info.data_ptr(), part.data_ptr(), stream_handle(vals))
+            state, xbuf, abuf, stream)
     check(err, "segment_sum_sorted")
     LAUNCHES["segment_sum_sorted"] += 1
     return out

@@ -162,14 +162,20 @@ def _finalize_packed(sums: torch.Tensor, min_ijk: torch.Tensor, leaf,
 
 
 def _flags_to_seg(flags: torch.Tensor, capacity: int) -> torch.Tensor:
-    """Boundary flags -> segment ids in [0, capacity] (capacity = discard)."""
+    """Boundary flags -> nondecreasing segment ids in [-1, capacity]: rows
+    before the first flag get -1, ids past the last slot the discard id
+    capacity."""
     seg = torch.cumsum(flags.to(torch.int32), dim=-1, dtype=torch.int32) - 1
-    return torch.where((seg >= 0) & (seg < capacity), seg, capacity)
+    return torch.clamp(seg, max=capacity)
 
 
 def _reduce_batched(flags, vals, capacity: int, impl: str):
     """Flat K2 pass over a camera batch: cloud b owns ids
-    [b*(capacity+1), b*(capacity+1) + capacity], the last its discard."""
+    [b*(capacity+1), b*(capacity+1) + capacity], the last its discard.
+
+    The flat ids do not decrease, as K2 needs. Only a cloud with no valid
+    point has rows before its first flag; their id -1 lands in the previous
+    cloud's discard slot (or drops, for cloud 0), and their values are 0."""
     b, n = flags.shape
     ch = vals.shape[-1]
     seg = _flags_to_seg(flags, capacity)

@@ -19,7 +19,8 @@ import pointcloud_stitching_tpu_torch as P
 from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
     block_ranges, nearest_neighbors_pallas_batched, nearest_neighbors_pruned,
-    nn_batched_prepared, nn_batched_prepared_ranged, prepare_ref_batched)
+    NN_MAX_SPLITS, nn_batched_prepared, nn_batched_prepared_ranged,
+    nn_splits, prepare_ref_batched)
 from pointcloud_stitching_tpu_torch.kernels.patch_gather import patch_gather
 from pointcloud_stitching_tpu_torch.models import tsdf as TM
 from pointcloud_stitching_tpu_torch.ops import icp_converge
@@ -59,8 +60,9 @@ def test_segment_kernels_match_plain(rng, cuda_device):
         got = segment_sum_from_flags(v, f, cap, impl="cuda")
         want = segment_sum_from_flags(v, f, cap, impl="torch")
         assert torch.equal(got, want)
+        # K2 takes nondecreasing ids: the leading -1 rows stay -1 and drop
         seg = torch.cumsum(f.to(torch.int32), 0, dtype=torch.int32) - 1
-        seg = torch.where((seg >= 0) & (seg < cap), seg, cap).to(torch.int32)
+        seg = torch.where(seg < cap, seg, cap).to(torch.int32)
         got = segment_sum_sorted(v, seg, cap, impl="cuda")
         want = segment_sum_sorted(v, seg, cap, impl="torch")
         assert torch.equal(got, want)
@@ -97,6 +99,207 @@ def test_nn_kernel_matches_plain(rng, cuda_device):
     wi, wd = nn_batched_prepared(qd, refT, impl="torch")
     assert torch.equal(gi, wi) and torch.equal(gd, wd)
     assert bool((gi[:, 0] == 10).all())
+
+
+def _k2_case(case: str):
+    """(vals [N, ch], seg [N], capacity) for one K2 case, from a generator
+    of its own."""
+    rng = np.random.default_rng(["long_run", "discard_mid", "gaps",
+                                 "out_of_range", "n1", "n511", "n513",
+                                 "ch1", "ch16"].index(case) + 40)
+    ch = {"ch1": 1, "ch16": 16}.get(case, 7)
+    if case == "long_run":        # one run over 30 tiles of 1024 rows
+        seg = np.concatenate([np.arange(100), np.full(30_000, 100),
+                              np.arange(101, 400)])
+        cap = 400
+    elif case == "discard_mid":   # 3 cameras of 9000 rows, 2048 slots each
+        cap_cam, segs = 2048, []
+        for c in range(3):
+            s = np.cumsum(rng.random(9000) < 0.5) - 1
+            s = np.where(s < cap_cam, s, cap_cam)   # a long discard suffix
+            segs.append(s + c * (cap_cam + 1))
+        seg, cap = np.concatenate(segs), 3 * (cap_cam + 1)
+    elif case == "gaps":          # ids jump by up to 40: the gaps read 0
+        seg = np.cumsum(rng.integers(0, 41, 20_000) * (rng.random(20_000)
+                                                       < 0.05))
+        cap = int(seg[-1]) + 500
+    elif case == "out_of_range":  # ids < 0 first, ids >= capacity last
+        seg = np.sort(rng.integers(-300, 2300, 25_000))
+        cap = 2000
+    else:
+        n = {"n1": 1, "n511": 511, "n513": 513}.get(case, 5000)
+        seg = np.sort(rng.integers(0, max(n // 3, 1), n))
+        cap = int(seg[-1]) + 7
+    vals = rng.normal(size=(seg.size, ch)).astype(np.float32)
+    return vals, seg.astype(np.int32), cap
+
+
+@pytest.mark.parametrize("case", ["long_run", "discard_mid", "gaps",
+                                  "out_of_range", "n1", "n511", "n513",
+                                  "ch1", "ch16"])
+def test_sorted_segment_kernel_matches_plain_bitwise(cuda_device, case):
+    """K2 (one launch) against its plain version bit for bit, and two
+    launches give the same bits."""
+    vals, seg, cap = _k2_case(case)
+    v = torch.from_numpy(vals).to(cuda_device)
+    s = torch.from_numpy(seg).to(cuda_device)
+    kb.reset_launches()
+    got = segment_sum_sorted(v, s, cap, impl="cuda")
+    again = segment_sum_sorted(v, s, cap, impl="cuda")
+    want = segment_sum_sorted(v, s, cap, impl="torch")
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["segment_sum_sorted"] == 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    hit = np.zeros(cap, bool)
+    hit[seg[(seg >= 0) & (seg < cap)]] = True
+    assert not bool(got[torch.from_numpy(~hit).to(cuda_device)].any())
+
+
+def test_sorted_segment_kernel_integer_sums_exact(cuda_device):
+    """Integer channels (the packed voxel branch) sum exactly."""
+    rng = np.random.default_rng(50)
+    seg = np.sort(rng.integers(0, 3000, 200_000)).astype(np.int32)
+    vals = rng.integers(0, 1024, (seg.size, 7)).astype(np.float32)
+    got = segment_sum_sorted(torch.from_numpy(vals).to(cuda_device),
+                             torch.from_numpy(seg).to(cuda_device), 3000,
+                             impl="cuda").cpu().numpy()
+    want = np.zeros((3000, 7))
+    np.add.at(want, seg, vals.astype(np.float64))
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+def test_sorted_segment_kernel_decreasing_ids_give_nan(cuda_device):
+    """Ids that decrease break K2's contract: every slot reads NaN, and the
+    next call, with nondecreasing ids, is right again."""
+    rng = np.random.default_rng(51)
+    v = torch.from_numpy(rng.normal(size=(5000, 7)).astype(np.float32)).to(
+        cuda_device)
+    seg = np.sort(rng.integers(0, 900, 5000)).astype(np.int32)
+    bad = seg.copy()
+    bad[3000:] -= 50                        # one drop, inside a tile
+    got = segment_sum_sorted(v, torch.from_numpy(bad).to(cuda_device), 1000,
+                             impl="cuda")
+    assert bool(got.isnan().all())
+    s = torch.from_numpy(seg).to(cuda_device)
+    assert torch.equal(segment_sum_sorted(v, s, 1000, impl="cuda"),
+                       segment_sum_sorted(v, s, 1000, impl="torch"))
+
+
+def test_sorted_segment_kernel_on_two_streams(cuda_device):
+    """Calls on two streams at once each keep their own look-back state."""
+    cases = [_k2_case(c) for c in ("long_run", "discard_mid")]
+    ins = [(torch.from_numpy(v).to(cuda_device),
+            torch.from_numpy(s).to(cuda_device), c) for v, s, c in cases]
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in ins]
+    outs = []
+    for st in streams:
+        st.wait_stream(main)
+    for _ in range(5):
+        for st, (v, s, c) in zip(streams, ins):
+            with torch.cuda.stream(st):
+                outs.append(segment_sum_sorted(v, s, c, impl="cuda"))
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        v, s, c = ins[k % 2]
+        assert torch.equal(out, segment_sum_sorted(v, s, c, impl="torch"))
+
+
+def test_voxel_batched_flat_ids_never_decrease(cuda_device, monkeypatch):
+    """The camera batch's flat K2 ids never decrease, with invalid points
+    and with clouds of no valid point (the first, a middle one and the
+    last), and the pass equals its plain version bit for bit."""
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    rng = np.random.default_rng(52)
+    xyz = torch.from_numpy(rng.uniform(-1, 1, (5, 6000, 3)).astype(
+        np.float32)).to(cuda_device)
+    mask = torch.from_numpy(rng.random((5, 6000)) > 0.3).to(cuda_device)
+    mask[[0, 2, 4]] = False
+    seen = []
+    real = V.segment_sum_sorted
+
+    def spy(vals, seg, capacity, impl="auto"):
+        seen.append(seg)
+        return real(vals, seg, capacity, impl=impl)
+
+    monkeypatch.setattr(V, "segment_sum_sorted", spy)
+    for packed in ("auto", "never"):
+        kb.reset_launches()
+        pc = P.PointCloud(xyz=xyz, mask=mask)
+        got = V.voxel_downsample(pc, 0.02, capacity=2048, packed=packed)
+        want = V.voxel_downsample(pc, 0.02, capacity=2048, packed=packed,
+                                  impl="torch")
+        assert kb.LAUNCHES["segment_sum_sorted"] == 1
+        assert torch.equal(got.xyz, want.xyz)
+        assert torch.equal(got.mask, want.mask)
+        assert not bool(got.mask[[0, 2, 4]].any())
+        assert bool((got.mask.sum(-1)[[1, 3]] == 2048).all())  # saturated
+    assert len(seen) == 4
+    for seg in seen:
+        assert bool((seg[1:] >= seg[:-1]).all())
+
+
+def _nn_check(q, r, mask, dev):
+    refT = prepare_ref_batched(r.to(dev), None if mask is None
+                               else mask.to(dev))
+    qd = q.to(dev)
+    gi, gd = nn_batched_prepared(qd, refT, impl="cuda")
+    wi, wd = nn_batched_prepared(qd, refT, impl="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    return gi, gd
+
+
+@pytest.mark.parametrize("b,n,m", [(8, 2048, 2048), (3, 700, 1001),
+                                   (2, 100, 5), (1, 1, 3)])
+def test_nn_split_kernel_matches_plain(cuda_device, b, n, m):
+    """K3 with the reference split across a cluster: the ring shape, M not
+    a multiple of S, and M < S (S is cut to M)."""
+    rng = np.random.default_rng(60 + m)
+    s = nn_splits(b, n, m)
+    assert 1 <= s <= min(NN_MAX_SPLITS, m)
+    if (b, n, m) == (8, 2048, 2048):
+        assert s >= 2 and s * 4 * b > 64
+    q = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(b, m, 3)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((b, m)) > 0.1)
+    mask[:, 0] = True
+    _nn_check(q, r, mask, cuda_device)
+
+
+def test_nn_tie_across_splits_goes_to_the_lower_index(cuda_device):
+    """Two equal references in different slices: the lower index wins."""
+    m = 2048
+    s = nn_splits(8, 2048, m)
+    r = torch.zeros((8, m, 3))
+    r[..., 0] = torch.arange(m, dtype=torch.float32)
+    lo_ref, hi_ref = 100, m - 100           # slice 0 and slice s - 1
+    assert lo_ref < m // s and hi_ref >= m * (s - 1) // s
+    r[:, lo_ref] = r[:, hi_ref] = torch.tensor([5.5, 3.0, 0.0])
+    q = torch.tensor([5.5, 3.0, 0.0]).expand(8, 2048, 3).contiguous()
+    gi, gd = _nn_check(q, r, None, cuda_device)
+    assert bool((gi == lo_ref).all()) and bool((gd == 0).all())
+
+
+def test_nn_all_references_masked(cuda_device):
+    rng = np.random.default_rng(61)
+    q = torch.from_numpy(rng.normal(size=(8, 2048, 3)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(8, 2048, 3)).astype(np.float32))
+    gi, gd = _nn_check(q, r, torch.zeros((8, 2048), dtype=torch.bool),
+                       cuda_device)
+    assert bool((gi == 0).all()) and bool((gd > 1e24).all())
+
+
+def test_nn_kernel_coarse_registration_shape(cuda_device):
+    """B = 1 at 131072 x 8192, the pruned search's coarse pass (S = 1)."""
+    rng = np.random.default_rng(62)
+    assert nn_splits(1, 131072, 8192) == 1
+    q = torch.from_numpy(rng.uniform(-2, 2, (1, 131072, 3)).astype(
+        np.float32))
+    r = torch.from_numpy(rng.uniform(-2, 2, (1, 8192, 3)).astype(np.float32))
+    _nn_check(q, r, torch.from_numpy(rng.random((1, 8192)) > 0.1),
+              cuda_device)
 
 
 def test_pipeline_kernels_match_plain_and_are_launched(cuda_device):

@@ -18,8 +18,9 @@ from pointcloud_stitching_tpu.kernels.segment_reduce import (
     segment_sum_sorted as jax_segsum_sorted)
 from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
-    nearest_neighbors_pallas, nearest_neighbors_pallas_batched,
-    nn_batched_prepared, prepare_ref_batched)
+    NN_MAX_SPLITS, NN_QUERY_TILE, H100_SMS, nearest_neighbors_pallas,
+    nearest_neighbors_pallas_batched, nn_batched_prepared, nn_splits,
+    prepare_ref_batched)
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     segment_sum_from_flags, segment_sum_sorted)
 
@@ -72,6 +73,46 @@ def test_segment_sum_sorted_matches_jax(rng, n, capacity, n_int, n_f32):
     got = segment_sum_sorted(torch.from_numpy(vals), torch.from_numpy(seg),
                              capacity)
     _assert_sums(got.numpy(), want, n_int)
+
+
+def test_sorted_sum_long_discard_suffix_matches_jax():
+    """K2's plain version against the JAX kernel on the flat multi-camera
+    layout, each camera ending in a discard run over many 128-row chunks."""
+    rng = np.random.default_rng(70)
+    cap_cam, segs = 64, []
+    for c in range(3):
+        s = np.cumsum(rng.random(1500) < 0.5) - 1
+        segs.append(np.minimum(s, cap_cam) + c * (cap_cam + 1))
+    seg = np.concatenate(segs).astype(np.int32)
+    capacity = 3 * (cap_cam + 1)
+    assert (seg % (cap_cam + 1) == cap_cam).sum() > 3 * 10 * 128
+    vals = rng.normal(size=(seg.size, 7)).astype(np.float32)
+    want = np.asarray(jax_segsum_sorted(jnp.asarray(vals), jnp.asarray(seg),
+                                        capacity, chunk=128, interpret=True))
+    got = segment_sum_sorted(torch.from_numpy(vals), torch.from_numpy(seg),
+                             capacity)
+    # JAX adds in float32, the port in float64: the discard sums (some 1400
+    # rows each) differ in float32 rounding
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 131072, 8192), (1, 131072, 131072),
+                                   (8, 2048, 2048), (3, 700, 1001),
+                                   (2, 100, 5), (1, 1, 3), (1, 3000, 3000),
+                                   (264, 10, 50)])
+def test_nn_splits(b, n, m):
+    """S = 1 where the query tiles fill the card (the registration shapes),
+    S >= 2 at the ring shape, and every one of the S slices
+    [m k / S, m (k + 1) / S) holds a reference."""
+    s = nn_splits(b, n, m)
+    assert 1 <= s <= min(NN_MAX_SPLITS, m)
+    tiles = b * -(-n // NN_QUERY_TILE)
+    if tiles >= H100_SMS or (b, n) == (1, 131072):
+        assert s == 1
+    if (b, n, m) == (8, 2048, 2048):
+        assert s >= 2 and s * tiles > 64
+    bounds = [m * k // s for k in range(s + 1)]
+    assert all(hi > lo for lo, hi in zip(bounds, bounds[1:]))
 
 
 @pytest.mark.parametrize("b,n,m,masked", [(3, 200, 300, 0.1), (2, 130, 700, 0.0),

@@ -26,6 +26,7 @@ from pointcloud_stitching_tpu.kernels import nn_pallas as JNN
 from pointcloud_stitching_tpu.models import registration as JR
 from pointcloud_stitching_tpu.ops.icp import icp as jax_icp
 from pointcloud_stitching_tpu.ops.icp import icp_converge as jax_icp_converge
+from pointcloud_stitching_tpu.ops.nn import nearest_neighbors as jax_nn
 from pointcloud_stitching_tpu.tools import register_cli as jax_register_cli
 import pointcloud_stitching_tpu_torch.io as PIO
 from pointcloud_stitching_tpu_torch import Intrinsics, PointCloud
@@ -189,29 +190,54 @@ def _icp_scene(rng, n=3000, masked=0.05):
     return src, dst, smask, dmask, T_true
 
 
+@pytest.fixture
+def jax_icp_direct_nn(monkeypatch):
+    """JAX's ``icp`` and ``icp_converge`` on the NN of its own Pallas kernel
+    (interpret mode, 128-wide tiles): the direct-difference d2 that the
+    port implements.
+
+    Off the TPU the JAX functions take the XLA NN, whose |q|^2+|r|^2-2qr
+    form rounds d2 by ~1e-6 m^2 on these 3 m sheets: as large as the 1 mm
+    noise, so it reorders correspondences at the trim quantile and moves T
+    by up to ~7e-5. That is the reference's arithmetic, not a fault of the
+    port. The functions are called unjitted (``__wrapped__``) so that the
+    substituted NN is traced whatever ran before."""
+    mod = sys.modules["pointcloud_stitching_tpu.ops.icp"]
+
+    def direct(q, r, m, query_tile, ref_tile, impl):
+        return jax_nn(q, r, m, query_tile=QT, ref_tile=RB, impl="pallas",
+                      interpret=True)
+
+    monkeypatch.setattr(mod, "nearest_neighbors", direct)
+    return jax_icp.__wrapped__, jax_icp_converge.__wrapped__
+
+
 @pytest.mark.parametrize("fn", ["icp", "icp_converge"])
 @pytest.mark.parametrize("prune", [False, True])
-def test_icp_matches_jax(rng, fn, prune):
+def test_icp_matches_jax(jax_icp_direct_nn, fn, prune):
+    # a generator per case: the suite-wide rng would make the inputs depend
+    # on which tests ran before
+    rng = np.random.default_rng(30 + 2 * (fn == "icp_converge") + prune)
     src, dst, smask, dmask, _ = _icp_scene(rng)
     js = JPointCloud(xyz=jnp.asarray(src), mask=jnp.asarray(smask))
     jd = JPointCloud(xyz=jnp.asarray(dst), mask=jnp.asarray(dmask))
     ps, pd = PointCloud(xyz=t(src), mask=t(smask)), \
         PointCloud(xyz=t(dst), mask=t(dmask))
+    j_icp, j_icp_converge = jax_icp_direct_nn
     if fn == "icp":
         kw = dict(iterations=6, max_corr_dist=0.2, trim_fraction=0.1)
-        want, got = jax_icp(js, jd, prune=prune, **kw), \
+        want, got = j_icp(js, jd, prune=prune, **kw), \
             icp(ps, pd, prune=prune, **kw)
     else:
         kw = dict(max_iterations=8, transformation_epsilon=0.0,
                   max_corr_dist=0.2)
-        want = jax_icp_converge(js, jd, prune=prune, **kw)
+        want = j_icp_converge(js, jd, prune=prune, **kw)
         got = icp_converge(ps, pd, prune=prune, **kw)
+    # the same correspondences on both sides; Kabsch's SVD (LAPACK against
+    # XLA) rounds differently, which moves T by ~1e-6
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-5)
     assert int(got.iterations) == int(want.iterations)
-    # JAX's XLA NN has |q|^2+|r|^2-2qr rounding in d2, which moves a few
-    # correspondences across the trim quantile
-    np.testing.assert_allclose(int(got.num_inliers), int(want.num_inliers),
-                               rtol=0.02)
+    assert int(got.num_inliers) == int(want.num_inliers)
     assert got.T.shape == (4, 4) and got.iterations.dtype == torch.int32
 
 
