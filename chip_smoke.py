@@ -15,7 +15,10 @@ volume, and checks the five hand-written CUDA kernels on those paths:
   3. each kernel against its plain PyTorch version at the shapes the main
      path gives it, on the card, then timed in turns with CUDA events
      (device time, the queue held by a spinning kernel while the calls are
-     enqueued; the time per call back to back beside it): K2 bit for bit at
+     enqueued; the time per call back to back beside it): K1 bit for bit on
+     the packed branch of the global pass (and whether the exact branch is
+     bitwise too), two launches equal, its one launch's grid printed; K2 bit
+     for bit at
      the ring-ICP shape and at the per-camera 1 cm pass, two launches equal,
      faster than index_add_, its launch configuration printed; K3 bit for
      bit at the ring shape (a tie across two reference slices goes to the
@@ -34,7 +37,9 @@ volume, and checks the five hand-written CUDA kernels on those paths:
      voxel-sorted clouds of >= 100k points (one 848x480 frame in 131072
      slots, and a moved copy with 1 mm noise). K4 against its plain version
      with the ranges block_ranges gives and with ranges narrowed on
-     purpose, the pruned NN against brute-force K3, register_pair with
+     purpose, two launches equal, its work items counted on the device and
+     in Python, its grid printed, and timed at other chunk sizes and grid
+     depths; the pruned NN against brute-force K3, register_pair with
      pruned icp_converge ('auto' against 'torch', with one K3 and one K4
      launch per iteration), register_global against a ~2-rad misalignment,
      the register CLI as a subprocess, and timings;
@@ -55,7 +60,10 @@ float32 instruction rate (132 SMs x 128 lanes x 1.98 GHz: the NN kernels'
 contract rounds every multiply and add on its own, so each operation is
 one issued instruction and no fused multiply-add counts twice), and the
 time of one PyTorch call that computes the same function where there is
-one.
+one. For K5 there is none: its library time is that of the PyTorch calls
+that compute its whole function (window arithmetic, window test, gather,
+zero fill), and the time of ``torch.take`` alone on indices worked out
+beforehand is printed beside it.
 
 Any failed check raises and the script exits non-zero. Run from the repo
 root with no arguments: ``python3 chip_smoke.py``. It imports nothing of
@@ -254,7 +262,7 @@ def main() -> int:
     from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
         NN_QUERY_TILE, nn_batched_prepared, nn_splits, prepare_ref_batched)
     from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
-        K2_TILE_ROWS, segment_sum_from_flags, segment_sum_sorted)
+        K2_TILE_ROWS, k1_grid, segment_sum_from_flags, segment_sum_sorted)
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -301,35 +309,85 @@ def main() -> int:
     # K1, packed branch: integer channels, must match bit for bit
     vals, flags = ki.k1
     cap = 262144
+    lib = kb.library()
     got = segment_sum_from_flags(vals, flags, cap, impl="cuda")
+    got_again = segment_sum_from_flags(vals, flags, cap, impl="cuda")
     want = segment_sum_from_flags(vals, flags, cap, impl="torch")
     torch.cuda.synchronize()
     check(torch.equal(got, want), "K1 packed sums differ from plain")
+    check(torch.equal(got, got_again), "K1 packed: two launches differ")
     err_k1 = (got - want).abs().max().item()
+    k1_blocks = k1_grid(vals.shape[0], vals.shape[1], cap)
+    check(lib.pcs_segsum_flags_grid(vals.shape[0], vals.shape[1], cap)
+          == sum(k1_blocks), "K1's grid differs between "
+          "csrc/segment_reduce.cu and segment_reduce.py")
+    check(lib.pcs_segsum_flags_tile_rows() == K2_TILE_ROWS,
+          "K1's tile differs between csrc/segment_reduce.cu and "
+          "segment_reduce.py")
+
+    def k1_launch(ch_):
+        return (f"{lib.pcs_segsum_flags_threads(ch_)} threads, "
+                f"{K2_TILE_ROWS} rows per tile, "
+                f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
+
     say(f"[3/8 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
-        f"equal ({int((want[:, 6] > 0).sum())} segments)")
+        f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
+        f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
+        f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
     # K1, exact branch at the 6 cm leaf: float channels
     vals6, flags6 = ki.k1_exact
     g6 = segment_sum_from_flags(vals6, flags6, cap, impl="cuda")
+    g6_again = segment_sum_from_flags(vals6, flags6, cap, impl="cuda")
     w6 = segment_sum_from_flags(vals6, flags6, cap, impl="torch")
+    check(torch.equal(g6, g6_again), "K1 exact: two launches differ")
     n6 = torch.clamp(w6[:, 3:4], min=1.0)
     torch.testing.assert_close(g6[:, :3] / n6, w6[:, :3] / n6,
                                rtol=RTOL_F32, atol=ATOL_F32)
     err_k1 = max(err_k1, (g6 - w6).abs().max().item())
     say(f"    K1 exact {tuple(vals6.shape)}: centroids within rtol "
-        f"{RTOL_F32}; bitwise equal: {torch.equal(g6, w6)}")
+        f"{RTOL_F32}; bitwise equal: {torch.equal(g6, w6)}; two launches "
+        f"bitwise equal; {int((w6[:, 3] > 0).sum())} segments, grid "
+        f"{k1_grid(vals6.shape[0], vals6.shape[1], cap)} x "
+        f"{k1_launch(vals6.shape[1])}")
     times = time_in_turns(
         lambda: segment_sum_from_flags(vals, flags, cap, impl="cuda"),
         lambda: segment_sum_from_flags(vals, flags, cap, impl="torch"))
+    # What this run's data needs: every flag, the rows whose id is below
+    # the capacity (ids never decrease, so they are the rows before the
+    # flag that starts id `cap`; the kernel stops reading where a tile's
+    # first id is past it), and the output. Beside it, the bound with every
+    # row read.
+    seg_ids = torch.cumsum(flags.to(torch.int32), 0)       # id + 1
+    rows_kept = int((seg_ids <= cap).sum())
+    ch1 = vals.shape[1]
+    needed = nbytes(flags, got) + rows_kept * ch1 * vals.element_size()
+    all_ms, _ = bound(nbytes(vals, flags, got), vals.numel())
+    say(f"    K1 packed: {rows_kept} of {vals.shape[0]} rows have an id "
+        f"below the capacity; bound with every row read {all_ms:.4f} ms")
     # no one PyTorch call: the segment ids need a cumsum of the flags first
     report("segment_sum_from_flags",
            "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
            "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
-           err_k1, times, nbytes(vals, flags, got), vals.numel())
-    del vals, flags, vals6, flags6, g6, w6, got, want
+           err_k1, times, needed, rows_kept * ch1)
+    # the same rows into 2^21 slots, which hold every 6 cm voxel of the
+    # scene (phase 5's grid): no id is past the capacity, every row is read
+    cap_all = 2 ** 21
+    ga = segment_sum_from_flags(vals6, flags6, cap_all, impl="cuda")
+    wa = segment_sum_from_flags(vals6, flags6, cap_all, impl="torch")
+    check(int(flags6.sum()) < cap_all, "2^21 slots do not hold the scene")
+    check(torch.equal(ga, wa), "K1 exact into 2^21 slots differs from plain")
+    t6 = time_in_turns(
+        lambda: segment_sum_from_flags(vals6, flags6, cap_all, impl="cuda"),
+        lambda: segment_sum_from_flags(vals6, flags6, cap_all, impl="torch"))
+    b6, _ = bound(nbytes(vals6, flags6, ga), vals6.numel())
+    say(f"    K1 exact into {cap_all} slots ({int(flags6.sum())} segments, "
+        f"every row kept, grid {k1_grid(*vals6.shape, cap_all)}): bitwise "
+        f"equal; kernel {t6[0]:.4f} ms (per call back to back {t6[2]:.4f} "
+        f"ms), plain {t6[1]:.4f} ms, bound {b6:.4f} ms")
+    del vals, flags, vals6, flags6, g6, g6_again, w6, got, got_again, want
+    del seg_ids, ga, wa
 
     # K2 at the ring-ICP shape and at the per-camera 1 cm pass
-    lib = kb.library()
     check(lib.pcs_nn_query_tile() == NN_QUERY_TILE,
           "K3's query tile differs between csrc/nn.cu and nn_pallas.py")
     check(lib.pcs_segsum_sorted_tile_rows() == K2_TILE_ROWS,
@@ -582,27 +640,24 @@ def main() -> int:
     return 0
 
 
-def registration_phase(dev, kb, report, kernels, card) -> None:
-    """Phase 7: the calibration path (K4, with K1 and K3) at 131k points."""
-    import tempfile
+K4_QUERY_TILE, K4_REF_BLOCK = 1024, 2048   # nearest_neighbors_pruned's
+
+
+def registration_scene(dev):
+    """The calibration path's clouds, made by the
+    ``pointcloud_stitching_tpu_torch`` that comes first on ``sys.path``:
+    src, one frame at the flagship intrinsics voxel-sorted into REG_CAP
+    slots (the leaf starts at 1 cm and coarsens until the slots are not all
+    used: a saturated pass keeps a crop of the scene), and dst, src moved
+    by a 0.05 rad / 5 cm pose plus 1 mm noise."""
+    import types
 
     import torch
     import oracle
     from pointcloud_stitching_tpu_torch import Intrinsics, PointCloud
-    from pointcloud_stitching_tpu_torch.io import load_cal, save_ply
-    from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
-        block_ranges, nearest_neighbors_pallas_batched,
-        nearest_neighbors_pruned, nn_batched_prepared,
-        nn_batched_prepared_ranged, prepare_ref_batched)
-    from pointcloud_stitching_tpu_torch.models import (
-        register_from_correspondences, register_global, register_pair)
-    from pointcloud_stitching_tpu_torch.ops import (deproject, icp,
-                                                    icp_converge, se3_apply,
+    from pointcloud_stitching_tpu_torch.ops import (deproject, se3_apply,
                                                     voxel_downsample)
 
-    # src: one frame at the flagship intrinsics, voxel-sorted into 131072
-    # slots; the leaf starts at 1 cm and coarsens until the slots are not
-    # all used (a saturated pass keeps a crop of the scene)
     depth = torch.from_numpy(oracle.synth_depth_frame(H, W, 0)).to(dev)
     i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
                            width=W, height=H, device=dev)
@@ -615,7 +670,6 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
             break
         leaf *= 1.1
     check(n_src >= 100_000, f"registration cloud has only {n_src} points")
-    valid = src.xyz[src.mask].cpu().numpy()
     noise = torch.from_numpy(np.random.default_rng(2).normal(
         0.0, 0.001, (REG_CAP, 3)).astype(np.float32)).to(dev)
 
@@ -625,39 +679,88 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return PointCloud(xyz=torch.where(src.mask[:, None], xyz, 0.0),
                           mask=src.mask)
 
+    T_true = oracle.random_se3(seed=3, max_angle=0.05, max_trans=0.05)
+    return types.SimpleNamespace(
+        src=src, n_src=n_src, leaf=leaf, moved=moved, T_true=T_true,
+        dst=moved(T_true),
+        picks=np.linspace(0, n_src - 1, 4).astype(np.int64))
+
+
+def k4_inputs(dev, scene=None):
+    """K4's inputs at the first ICP iteration of ``register_pair`` on
+    ``registration_scene``: REG_CAP queries against REG_CAP references,
+    with the ranges ``block_ranges`` gives from the K3 coarse pass."""
+    import types
+
+    from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
+        block_ranges, nearest_neighbors_pallas_batched, prepare_ref_batched)
+    from pointcloud_stitching_tpu_torch.models import (
+        register_from_correspondences)
+    from pointcloud_stitching_tpu_torch.ops import se3_apply
+
+    sc = scene or registration_scene(dev)
+    T0 = register_from_correspondences(sc.src, sc.dst, sc.picks, sc.picks)
+    q, qm = se3_apply(T0, sc.src.xyz)[None], sc.src.mask[None]
+    r, rm = sc.dst.xyz[None], sc.dst.mask[None]
+    _, ub = nearest_neighbors_pallas_batched(q, r[:, ::16], rm[:, ::16],
+                                             impl="cuda")
+    jlo, jhi = block_ranges(q, qm, r, rm, ub, query_tile=K4_QUERY_TILE,
+                            ref_block=K4_REF_BLOCK)
+    return types.SimpleNamespace(T0=T0, q=q, qm=qm, r=r, rm=rm, jlo=jlo,
+                                 jhi=jhi, refT=prepare_ref_batched(r, rm))
+
+
+def registration_phase(dev, kb, report, kernels, card) -> None:
+    """Phase 7: the calibration path (K4, with K1 and K3) at 131k points."""
+    import tempfile
+
+    import torch
+    import oracle
+    from pointcloud_stitching_tpu_torch.io import load_cal, save_ply
+    from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
+        NN_QUERY_TILE, NN_RANGED_BLOCKS_PER_SM, NN_RANGED_CHUNK,
+        nearest_neighbors_pruned, nn_batched_prepared,
+        nn_batched_prepared_ranged, nn_ranged_chunks,
+        nn_ranged_scratch_sizes)
+    from pointcloud_stitching_tpu_torch.models import (register_global,
+                                                       register_pair)
+    from pointcloud_stitching_tpu_torch.ops import icp, icp_converge
+
+    sc = registration_scene(dev)
+    src, dst, picks, n_src, T_true = (sc.src, sc.dst, sc.picks, sc.n_src,
+                                      sc.T_true)
+    moved = sc.moved
+    valid = src.xyz[src.mask].cpu().numpy()
+
     def point_err(T, T_ref) -> float:
         """Largest distance between src's points under T and under T_ref."""
         got = oracle.transform_np(T.cpu().numpy(), valid)
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    T_true = oracle.random_se3(seed=3, max_angle=0.05, max_trans=0.05)
-    dst = moved(T_true)
-    picks = np.linspace(0, n_src - 1, 4).astype(np.int64)
-    say(f"[7/8 registration] src {n_src} points at a {leaf:.4f} m leaf "
+    say(f"[7/8 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
     # (a)-(c): K4 at the first ICP iteration's shapes, 131072 x 131072
-    T0 = register_from_correspondences(src, dst, picks, picks)
-    q, qm = se3_apply(T0, src.xyz)[None], src.mask[None]
-    r, rm = dst.xyz[None], dst.mask[None]
-    _, ub = nearest_neighbors_pallas_batched(q, r[:, ::16], rm[:, ::16],
-                                             impl="cuda")
-    jlo, jhi = block_ranges(q, qm, r, rm, ub, query_tile=1024,
-                            ref_block=2048)
-    refT = prepare_ref_batched(r, rm)
+    ki = k4_inputs(dev, sc)
+    T0, q, qm, r, rm, jlo, jhi, refT = (ki.T0, ki.q, ki.qm, ki.r, ki.rm,
+                                        ki.jlo, ki.jhi, ki.refT)
 
     def k4(lo, hi, impl):
-        return nn_batched_prepared_ranged(q, refT, lo, hi, query_tile=1024,
-                                          ref_block=2048, impl=impl)
+        return nn_batched_prepared_ranged(
+            q, refT, lo, hi, query_tile=K4_QUERY_TILE,
+            ref_block=K4_REF_BLOCK, impl=impl)
 
     gi, gd = k4(jlo, jhi, "cuda")
+    ai, ad = k4(jlo, jhi, "cuda")
     wi, wd = k4(jlo, jhi, "torch")
     torch.cuda.synchronize()
     check(torch.equal(gi, wi), "K4 idx differs from plain")
     check(torch.equal(gd, wd), "K4 d2 not bitwise equal to plain")
-    nq, nm = jlo.shape[1], -(-REG_CAP // 2048)
+    check(torch.equal(gi, ai) and torch.equal(gd, ad),
+          "K4: two launches differ")
+    nq, nm = jlo.shape[1], -(-REG_CAP // K4_REF_BLOCK)
     share = float((jhi - jlo + 1).sum()) / (nq * nm)
     bi, bd = nn_batched_prepared(q, refT, impl="cuda")
     pi, pd = nearest_neighbors_pruned(q, r, rm, qm, impl="cuda")
@@ -669,9 +772,44 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
           "K4 with narrowed ranges differs from plain")
     n_diff = int((ni != bi)[qm].sum())
     check(n_diff > 0, "narrowed ranges gave the brute-force answer")
+    lib = kb.library()
+    check(lib.pcs_nn_query_tile() == NN_QUERY_TILE,
+          "K4's sub-tile differs between csrc/nn.cu and nn_pallas.py")
+    n_q, m_r = q.shape[1], r.shape[1]
+    n_keys, n_meta = nn_ranged_scratch_sizes(1, n_q)
+    keys = torch.empty((n_keys,), dtype=torch.int64, device=dev)
+    meta = torch.empty((n_meta,), dtype=torch.int32, device=dev)
+    di, dd = torch.empty_like(gi), torch.empty_like(gd)
+
+    def k4_direct(chunk, blocks_per_sm):
+        """The kernel with a chunk size and grid depth of the caller's
+        choosing, launched directly (launches not counted)."""
+        kb.check(lib.pcs_nn_batched_ranged(
+            q.data_ptr(), refT.data_ptr(), jlo.data_ptr(), jhi.data_ptr(), 1,
+            n_q, m_r, K4_QUERY_TILE, K4_REF_BLOCK, chunk, blocks_per_sm,
+            di.data_ptr(), dd.data_ptr(), keys.data_ptr(), meta.data_ptr(),
+            kb.stream_handle(q)), "K4 sweep")
+
+    k4_direct(NN_RANGED_CHUNK, NN_RANGED_BLOCKS_PER_SM)
+    torch.cuda.synchronize()
+    check(torch.equal(di, wi) and torch.equal(dd, wd),
+          "K4 launched directly differs from plain")
+    chunks = nn_ranged_chunks(jlo, jhi, n_q, m_r, K4_QUERY_TILE,
+                              K4_REF_BLOCK)
+    items, n_sub = int(chunks.sum()), chunks.numel()
+    check(int(meta[n_sub]) == items and int(meta[n_sub + 1]) >= items,
+          f"K4 counted {int(meta[n_sub])} items on the device, "
+          f"nn_ranged_chunks {items}")
+    grid = lib.pcs_nn_ranged_grid(NN_RANGED_BLOCKS_PER_SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    check(grid >= sms and grid % sms == 0, f"K4's grid is {grid} blocks")
     say(f"    (a) K4 {tuple(q.shape)} vs {tuple(r.shape)}, ranges of "
-        f"block_ranges: idx equal, d2 bitwise equal; blocks swept "
-        f"{share:.4f} of {nq} x {nm}")
+        f"block_ranges: idx equal, d2 bitwise equal, two launches equal; "
+        f"blocks swept {share:.4f} of {nq} x {nm}; {items} items of "
+        f"{NN_QUERY_TILE} queries x {NN_RANGED_CHUNK} references in {n_sub} "
+        f"sub-tiles (1 to {int(chunks.max())} each, counted on the device "
+        f"and in Python), 2 launches: set-up, then a persistent grid of "
+        f"{grid} blocks x 128 threads ({grid // sms} per SM)")
     say(f"    (b) pruned NN (K3 coarse + K4) == brute-force K3 on "
         f"{int(qm.sum())} valid queries")
     say(f"    (c) K4 with ranges cut to one block: equal to plain, "
@@ -679,8 +817,22 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     times = time_in_turns(lambda: k4(jlo, jhi, "cuda"),
                           lambda: k4(jlo, jhi, "torch"), reps=5)
     ms, pms, _ = times
+    # the chunk size and grid depth behind NN_RANGED_CHUNK and
+    # NN_RANGED_BLOCKS_PER_SM: the kernel at others, each equal to plain
+    sweep = []
+    for chunk, bps in ((1024, 0), (2048, 0), (4096, 0), (8192, 0),
+                       (2048, 2), (2048, 4)):
+        k4_direct(chunk, bps)
+        torch.cuda.synchronize()
+        check(torch.equal(di, wi) and torch.equal(dd, wd),
+              f"K4 at chunk {chunk}, {bps} blocks per SM differs from plain")
+        t_sw = cuda_ms(lambda: k4_direct(chunk, bps), 10)
+        sweep.append(f"{chunk}/{lib.pcs_nn_ranged_grid(bps) // sms}: "
+                     f"{t_sw:.4f}")
+    say(f"    K4 by chunk / blocks per SM (ms, device), each equal to "
+        f"plain: {', '.join(sweep)}")
     # the pairs this run's ranges sweep, 9 operations each (as K3)
-    n_q, m_r, qt, rb = q.shape[1], r.shape[1], 1024, 2048
+    qt, rb = K4_QUERY_TILE, K4_REF_BLOCK
     t_idx = torch.arange(jlo.shape[1], device=dev)
     q_in_tile = torch.clamp(n_q - t_idx * qt, max=qt)
     refs = (torch.clamp((jhi.long() + 1) * rb, max=m_r) - jlo.long() * rb)
@@ -690,7 +842,8 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
            "pointcloud_stitching_tpu/kernels/nn_pallas.py:300",
            (gd - wd).abs().max().item(), times,
            nbytes(q, refT, jlo, jhi, gi, gd), 9 * pairs)
-    del gi, gd, wi, wd, bi, bd, pi, pd, ni, nd, nwi, nwd
+    del gi, gd, ai, ad, wi, wd, bi, bd, pi, pd, ni, nd, nwi, nwd, di, dd
+    del keys, meta
 
     # (d): the main path, register_pair + pruned icp_converge
     runs = {}
@@ -988,8 +1141,31 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     times = time_in_turns(
         lambda: patch_gather(img, v0, u0, iv, iu, impl="cuda"),
         lambda: patch_gather(img, v0, u0, iv, iu, impl="torch"))
+    # no one PyTorch call computes K5's function. Like for like: the calls
+    # that compute all of it from (v0, u0, iv, iu): the window's aligned
+    # and clamped start, the window and image tests, the gather, the zero
+    # fill. Beside it, torch.take alone on flat indices worked out
+    # beforehand (the gather without K5's arithmetic).
     flat_img = img.reshape(-1)
-    lib_ms = cuda_ms(lambda: torch.take(flat_img, flat), 20)
+    hp, wp = max(512, -(-H // 8) * 8), max(1024, -(-W // 128) * 128)
+
+    def k5_in_torch_calls():
+        v0a = torch.clamp(v0 - torch.remainder(v0, 8), 0, hp - 128)
+        u0a = torch.clamp(u0 - torch.remainder(u0, 128), 0, wp - 256)
+        ivl, iul = iv + (v0 - v0a)[:, None], iu + (u0 - u0a)[:, None]
+        rr, cc = v0a[:, None] + ivl, u0a[:, None] + iul
+        ok = ((ivl >= 0) & (ivl < 128) & (iul >= 0) & (iul < 256)
+              & (rr < H) & (cc < W))
+        at = torch.clamp(rr, 0, H - 1) * W + torch.clamp(cc, 0, W - 1)
+        return torch.where(ok, torch.take(flat_img, at.long()), 0.0)
+
+    check(torch.equal(k5_in_torch_calls(), got),
+          "K5 differs from its function in PyTorch calls")
+    take_ms = cuda_ms(lambda: torch.take(flat_img, flat), 20)
+    lib_ms = cuda_ms(k5_in_torch_calls, 20)
+    say(f"    K5 beside PyTorch: the whole function in PyTorch calls "
+        f"{lib_ms:.4f} ms (the library time below), torch.take alone on "
+        f"ready-made int64 indices {take_ms:.4f} ms")
     report("patch_gather",
            "pointcloud_stitching_tpu_torch/csrc/patch_gather.cu",
            "pointcloud_stitching_tpu/kernels/patch_gather.py:118",

@@ -14,19 +14,44 @@
 //
 // K1. The TPU kernel walks the sorted stream in order on one core and
 // carries the running segment id and partial sums from grid step to grid
-// step. CUDA blocks run in no order, so nothing carries between them:
-//   * the rows are cut into tiles of TILE rows, one block per tile;
-//   * a first kernel counts the flags of every tile, a second scans those
-//     counts in one block (the carry the TPU kept in SMEM becomes a tile
-//     offset), then each block scans its own flags (ballot + popc per
-//     warp, then across warps) to give every row its segment id;
-//   * inside a tile, the thread at the head of each run of equal ids sums
-//     that run's rows from shared memory: no atomics;
-//   * a run at the start of a tile that continues a segment from an earlier
-//     tile stores its partial in `part` (head slot), and so does a segment
-//     that starts in a tile and reaches its end (tail slot); a fix-up pass
-//     then lets the tile that holds the segment's first row add the head
-//     partials of the following tiles in tile order.
+// step. CUDA blocks run in no order, so the carry becomes two decoupled
+// look-backs inside one launch (no memset, no second pass over the flags):
+//   * one block per tile of 1024 rows, 4 or 8 rows per thread by the
+//     channel count. Tile t is block t: blocks start in index order, so the
+//     tiles a look-back waits for are running or done. (A persistent grid
+//     that took tiles from a counter was measured slower.)
+//   * the ids: a block counts its flags, publishes the count in one 64-bit
+//     word (tag | state | count), and a warp reads the words of the 32
+//     tiles before it at once, adding counts back to the nearest tile whose
+//     inclusive prefix is known; it then publishes its own prefix. State
+//     and value travel in one word, so this chain needs no fences, and it
+//     runs ahead of the values: it reads flags only;
+//   * a tile whose ids are all past capacity (the saturated grid of the
+//     flagship scene: 92% of the tiles) stops once it knows and never reads
+//     its rows; it leaves a word behind, and the tiles that start after
+//     that stop at once. A tile that starts within the first `capacity`
+//     rows cannot be such a tile and starts its copy (cp.async, as K2)
+//     before the look-back; the others start it once they know;
+//   * the sums: K2's segmented scan inside the warp (float64, head flags
+//     from the row flags), the warps' totals folded in order by every
+//     thread that needs them (one barrier per 4 channels), and K2's
+//     look-back over the float64 partials for the run that enters the
+//     tile. Only a tile whose first row carries no flag looks back, and
+//     only if that run's id is kept;
+//   * the slots that no run reaches: ids are dense (every id below the
+//     number of flags has a run), so only [flags in all, capacity) reads 0.
+//     After tile t at most U_t = (flags up to t's end) + (rows after t) ids
+//     can exist; U_t falls from N to the number of flags by one for every
+//     row without a flag. Tile t zeroes the slots [U_t, U_{t-1}) below
+//     capacity, at most one per row it holds, and extra blocks past the
+//     last tile zero [N, capacity) where capacity > N. Every slot is
+//     written exactly once, by a sum or by a zero;
+//   * no counters and no reset: every word a launch publishes carries the
+//     launch's epoch, and a word with another epoch reads as not yet
+//     published. The wrapper counts the epochs per scratch.
+// What bounds it: the bytes it has to read (every flag, and the rows whose
+// ids are kept) and a tile's latency chain (flags, count, look-back, copy,
+// scans, writes), which is hidden only by the blocks resident on an SM.
 //
 // K2. One launch, no memset, and no serial run sums. In the ring-ICP pass
 // most rows lie in a few long runs (every voxel past a camera's 2048th goes
@@ -84,170 +109,11 @@
 
 namespace {
 
-constexpr int TILE = 512;            // rows per tile == threads per block
-constexpr int WARPS = TILE / 32;
-constexpr int MAX_CH = 16;           // dynamic smem: MAX_CH * TILE * 4 = 32 KB
-constexpr int SCAN_THREADS = 1024;
-constexpr int FIXUP_THREADS = 256;
-
-// tile_info layout, 3 ints per tile
-constexpr int TI_HAS_CONT = 0;   // first run continues an earlier segment
-constexpr int TI_HAS_START = 1;  // tile holds at least one segment start
-constexpr int TI_LAST_ID = 2;    // id of the tile's last row
-
-// Inclusive block-wide count of `f` over threads 0..threadIdx.x.
-__device__ int block_scan_flag(int f, int* warp_incl) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(0xffffffffu, f);
-  const int incl = __popc(ballot & (0xffffffffu >> (31 - lane)));
-  if (lane == 31) warp_incl[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = lane < WARPS ? warp_incl[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += t;
-    }
-    if (lane < WARPS) warp_incl[lane] = v;
-  }
-  __syncthreads();
-  return incl + (warp > 0 ? warp_incl[warp - 1] : 0);
-}
-
-// K1 pass 1: number of flagged rows in each tile.
-__global__ void tile_flag_count(const uint8_t* __restrict__ flags, int n,
-                                int* __restrict__ tile_counts) {
-  __shared__ int warp_count[WARPS];
-  const int i = blockIdx.x * TILE + threadIdx.x;
-  const int f = (i < n && flags[i] != 0) ? 1 : 0;
-  const unsigned ballot = __ballot_sync(0xffffffffu, f);
-  if ((threadIdx.x & 31) == 0) warp_count[threadIdx.x >> 5] = __popc(ballot);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < WARPS; ++w) s += warp_count[w];
-    tile_counts[blockIdx.x] = s;
-  }
-}
-
-// K1 pass 2: exclusive scan of the tile counts, in one block.
-__global__ void tile_offsets_scan(const int* __restrict__ counts, int ntiles,
-                                  int* __restrict__ offsets) {
-  __shared__ int warp_incl[SCAN_THREADS / 32];
-  __shared__ int carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int base = 0; base < ntiles; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    const int v = i < ntiles ? counts[i] : 0;
-    int x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += t;
-    }
-    if (lane == 31) warp_incl[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int y = warp_incl[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(0xffffffffu, y, o);
-        if (lane >= o) y += t;
-      }
-      warp_incl[lane] = y;
-    }
-    __syncthreads();
-    const int incl = x + (warp > 0 ? warp_incl[warp - 1] : 0);
-    const int c = carry;
-    if (i < ntiles) offsets[i] = c + incl - v;
-    __syncthreads();
-    if (threadIdx.x == SCAN_THREADS - 1) carry = c + incl;
-    __syncthreads();
-  }
-}
-
-// K1 per-tile run sums: ids from flags + tile offsets.
-__global__ void tile_segsum(const float* __restrict__ vals, int n, int ch,
-                            const uint8_t* __restrict__ flags,
-                            const int* __restrict__ tile_offsets,
-                            int capacity, float* __restrict__ out,
-                            double* __restrict__ part,
-                            int* __restrict__ tile_info) {
-  extern __shared__ float sval[];          // [ch][TILE]
-  __shared__ int sid[TILE];
-  __shared__ int warp_incl[WARPS];
-  const int t = blockIdx.x, tid = threadIdx.x;
-  const long long r0 = (long long)t * TILE;
-  const int rows = (int)min((long long)TILE, (long long)n - r0);
-  const long long i = r0 + tid;
-  const bool live = tid < rows;
-
-  const int f = (live && flags[i] != 0) ? 1 : 0;
-  const int id = tile_offsets[t] + block_scan_flag(f, warp_incl) - 1;
-  const bool start = f != 0;
-  if (live) sid[tid] = id;
-  // coalesced copy of the tile's rows, transposed to [ch][TILE]
-  const float* src = vals + r0 * ch;
-  for (int k = tid; k < rows * ch; k += TILE) {
-    const int r = k / ch, c = k - r * ch;
-    sval[c * TILE + r] = src[k];
-  }
-  const int any_start = __syncthreads_or(start ? 1 : 0);
-
-  if (live && (start || tid == 0)) {
-    const bool keep = id >= 0 && id < capacity;
-    if (keep) {
-      int end = tid + 1;
-      while (end < rows && sid[end] == id) ++end;
-      double* head = part + (2LL * t) * ch;     // continuation of a segment
-      double* tail = part + (2LL * t + 1) * ch; // start that reaches the end
-      for (int c = 0; c < ch; ++c) {
-        const float* col = sval + c * TILE;
-        double acc = 0.0;
-        for (int r = tid; r < end; ++r) acc += (double)col[r];
-        if (!start) {
-          head[c] = acc;
-        } else {
-          out[(long long)id * ch + c] = (float)acc;
-          if (end == rows) tail[c] = acc;
-        }
-      }
-    }
-    if (tid == 0) tile_info[3 * t + TI_HAS_CONT] = (!start && keep) ? 1 : 0;
-  }
-  if (tid == 0) {
-    tile_info[3 * t + TI_HAS_START] = any_start;
-    tile_info[3 * t + TI_LAST_ID] = sid[rows - 1];
-  }
-}
-
-// A segment that starts in tile t and runs past its end: add the head
-// partials of the following tiles to tile t's tail partial, in tile order,
-// and round once.
-__global__ void tile_fixup(int ntiles, int ch, int capacity,
-                           const double* __restrict__ part,
-                           const int* __restrict__ tile_info,
-                           float* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= ntiles || !tile_info[3 * t + TI_HAS_START]) return;
-  const int s = tile_info[3 * t + TI_LAST_ID];
-  if (s < 0 || s >= capacity) return;
-  if (t + 1 >= ntiles || !tile_info[3 * (t + 1) + TI_HAS_CONT]) return;
-  for (int c = 0; c < ch; ++c) {
-    double acc = part[(2LL * t + 1) * ch + c];
-    for (int k = t + 1; k < ntiles && tile_info[3 * k + TI_HAS_CONT]; ++k) {
-      acc += part[(2LL * k) * ch + c];
-      if (tile_info[3 * k + TI_HAS_START]) break;  // segment ends in tile k
-    }
-    out[(long long)s * ch + c] = (float)acc;
-  }
-}
-
-int ntiles_of(int n) { return (n + TILE - 1) / TILE; }
+constexpr int MAX_CH = 16;
 
 // ---------------------------------------------------------------------------
-// K2: one launch, a segmented reduction inside each tile, and a decoupled
-// look-back across tiles.
+// Shared by K1 and K2: one launch, a segmented reduction inside each tile,
+// and a decoupled look-back across tiles.
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(smem);
@@ -343,6 +209,49 @@ __device__ __forceinline__ int block_scan_int_excl(int x, int* s_w,
   *total = s_w[K2_WARPS - 1];
   __syncthreads();
   return excl;
+}
+
+// Warp 0 of tile t, whose first run began in an earlier tile: s_x[c] = the
+// sum of that run's rows before the tile. The warp reads the statuses of the
+// 32 tiles before it at once (lane 0 the nearest), waits until each has
+// published, and adds the AGG sums back to the nearest PREFIX; if there is
+// none among the 32 it goes on with the 32 before those. A status counts
+// as published when its bits above the lowest two equal `tag` (K2: 0, its
+// last block zeroes the statuses; K1: the launch's epoch).
+__device__ __forceinline__ void lookback_run_sum(
+    const int* status, int tag, const double* __restrict__ xbuf,
+    const double* __restrict__ abuf, int t, int ch, double* s_x) {
+  const int lane = threadIdx.x & 31;
+  for (int c = lane; c < ch; c += 32) s_x[c] = 0.0;
+  __syncwarp();
+  for (int k0 = t - 1;; k0 -= 32) {
+    const int k = k0 - lane;
+    int st = ST_PREFIX;  // before the array: a prefix of nothing
+    if (k >= 0) {
+      do {
+        st = ld_acquire(status + k);
+      } while (st == 0 || (st & ~3) != tag);
+    }
+    const unsigned pm = __ballot_sync(FULL, (st & 3) == ST_PREFIX);
+    const int p = pm ? __ffs(pm) - 1 : 32;  // the nearest prefix
+    // every channel's value in one round trip, then one sum each
+    const double* src_k = (lane < p ? abuf : xbuf) + (long long)k * MAX_CH;
+    double v[MAX_CH];
+#pragma unroll
+    for (int c = 0; c < MAX_CH; ++c)
+      v[c] = (c < ch && lane <= p && k >= 0) ? __ldcg(src_k + c) : 0.0;
+#pragma unroll
+    for (int c = 0; c < MAX_CH; ++c) {
+      if (c < ch) {
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v[c] += __shfl_down_sync(FULL, v[c], o);
+        if (lane == 0) s_x[c] += v[c];
+      }
+    }
+    __syncwarp();
+    if (p < 32) break;
+  }
 }
 
 // One block per tile of K2_TILE rows, tiles taken in start order from a
@@ -567,34 +476,7 @@ segsum_sorted_kernel(const float* __restrict__ vals,
       st_release(status + t, pass ? ST_AGG : ST_PREFIX);
     }
     if (fl & TF_HEAD_CONT) {
-      for (int c = lane; c < ch; c += 32) s_x[c] = 0.0;
-      __syncwarp();
-      for (int k0 = t - 1;; k0 -= 32) {
-        const int k = k0 - lane;  // lane 0 looks at the nearest tile
-        int st = ST_PREFIX;
-        if (k >= 0) {
-          do { st = ld_acquire(status + k); } while (st == 0);
-        }
-        const unsigned pm = __ballot_sync(FULL, st == ST_PREFIX);
-        const int p = pm ? __ffs(pm) - 1 : 32;  // the nearest prefix
-        // every channel's value in one round trip, then one sum each
-        const double* src_k = (lane < p ? abuf : xbuf) + (long long)k * MAX_CH;
-        double v[MAX_CH];
-#pragma unroll
-        for (int c = 0; c < MAX_CH; ++c)
-          v[c] = (c < ch && lane <= p) ? __ldcg(src_k + c) : 0.0;
-#pragma unroll
-        for (int c = 0; c < MAX_CH; ++c) {
-          if (c < ch) {
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-              v[c] += __shfl_down_sync(FULL, v[c], o);
-            if (lane == 0) s_x[c] += v[c];
-          }
-        }
-        __syncwarp();
-        if (p < 32) break;
-      }
+      lookback_run_sum(status, 0, xbuf, abuf, t, ch, s_x);
       if (!(pass && (fl & TF_TAIL_CONT))) {  // the run ends in this tile
         const int s = seg[r0];
         if (s >= 0 && s < capacity)
@@ -632,40 +514,401 @@ segsum_sorted_kernel(const float* __restrict__ vals,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K1: ids from boundary flags, in one launch (see the note at the top).
+
+// K1's launch shape: tiles of K1_TILE rows, RPT rows to a thread, so that a
+// thread holds about 32 floats whatever the channel count (measured at 4
+// and 7 channels: fewer, longer threads win where rows are narrow, more,
+// shorter ones where they are wide), and 1024 threads to an SM (64
+// registers a thread): a tile's latency is hidden by the other tiles
+// resident with it.
+constexpr int K1_TILE = 1024;
+constexpr int K1_NARROW_CH = 4;   // up to here 8 rows to a thread, else 4
+constexpr int K1_SM_THREADS = 1024;
+constexpr int K1_ZERO_FLOATS = 16384;  // floats zeroed by a zero-only block
+// count look-back word: low half a flag count; high half the launch's tag
+// (epoch << 2) plus a state
+constexpr unsigned CS_AGG = 1;     // the tile's own count
+constexpr unsigned CS_PREFIX = 2;  // the count up to the tile's end
+
+__device__ __forceinline__ void st_relaxed64(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed64(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The rows [r0, r0 + rows) into shared memory, one pad float after each
+// thread's RPT rows: coalesced asynchronous copies, all in flight at
+// once. Element k goes to k + k / per; the quotient is stepped, not divided.
+template <int THREADS>
+__device__ __forceinline__ void stage_rows(float* sval, const float* src,
+                                           int count, int per) {
+  int slot = threadIdx.x / per, rem = threadIdx.x - slot * per;
+  const int dq = THREADS / per, dr = THREADS - dq * per;
+  for (int k = threadIdx.x; k < count; k += THREADS) {
+    cp_async4(sval + k + slot, src + k);
+    slot += dq;
+    rem += dr;
+    if (rem >= per) {
+      rem -= per;
+      ++slot;
+    }
+  }
+  cp_async_commit();
+}
+
+// Block t < ntiles is tile t of K1_TILE rows (thread i holds rows i * RPT..
+// of the tile, RPT = K1_TILE / THREADS); the blocks after them zero a share
+// of the slots [n, capacity). A tile waits only for tiles before it, and
+// blocks start in index order, so what it waits for is running or done.
+// status / cstat: per-tile words of the sums' and the counts' look-backs,
+// and hint, one word for the launch; a word counts as published when it
+// carries this launch's tag (epoch << 2, epoch >= 1), so nothing resets
+// them between launches. xbuf/abuf: [ntiles][MAX_CH] f64.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS, K1_SM_THREADS / THREADS)
+segsum_flags_kernel(const float* __restrict__ vals,
+                    const uint8_t* __restrict__ flags, int n, int ch,
+                    int capacity, int ntiles, float* __restrict__ out,
+                    int tag, unsigned long long* __restrict__ hint,
+                    int* __restrict__ status,
+                    unsigned long long* __restrict__ cstat,
+                    double* __restrict__ xbuf, double* __restrict__ abuf) {
+  constexpr int RPT = K1_TILE / THREADS;  // rows per thread
+  constexpr int WARPS = THREADS / 32;
+  extern __shared__ float sval[];  // THREADS x (RPT * ch + 1)
+  __shared__ double s_wv[MAX_CH + K2_CG][WARPS];
+  __shared__ double s_head[MAX_CH], s_tail[MAX_CH], s_x[MAX_CH];
+  __shared__ int s_cnt[WARPS], s_fw[WARPS];
+  __shared__ int s_excl, s_tail_cont;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t = blockIdx.x;
+
+  if (t >= ntiles) {
+    // a zero-only block: its share of the slots past the last row's
+    const long long lo = (long long)min(n, capacity) * ch +
+                         (long long)(t - ntiles) * K1_ZERO_FLOATS;
+    const long long hi = min(lo + K1_ZERO_FLOATS, (long long)capacity * ch);
+    for (long long k = lo + tid; k < hi; k += THREADS) out[k] = 0.0f;
+    return;
+  }
+  const long long r0 = (long long)t * K1_TILE;
+  const int rows = (int)min((long long)K1_TILE, (long long)n - r0);
+  const int per = RPT * ch;  // floats of one thread's rows
+  const int stride = per + 1;   // odd: no bank conflicts below
+  // At most r0 runs start before the tile, so with r0 <= capacity its ids
+  // cannot all lie past capacity and the copy starts now, under the
+  // look-back. A later tile first learns whether any of its ids is below
+  // capacity.
+  const bool early = r0 <= capacity;
+  if (early) stage_rows<THREADS>(sval, vals + r0 * ch, rows * ch, per);
+  // Has a tile before this one found its ids past capacity already? (The
+  // answer arrives under the flags' loads.)
+  const unsigned long long hi_tag = (unsigned long long)(unsigned)tag << 32;
+  const unsigned long long past = hi_tag |
+                                  ((unsigned long long)CS_PREFIX << 32) |
+                                  (unsigned)(capacity + 1);
+  unsigned long long seen = 0;
+  if (!early && tid == 0) seen = ld_relaxed64(hint);
+
+  // the flags of this thread's rows: bit j of head, row j starts a run;
+  // bit j of run_end, the row after it does (or there is none)
+  const int j0 = tid * RPT;
+  const int nj = max(0, min(RPT, rows - j0));
+  const long long i0 = r0 + j0;
+  unsigned head = 0, run_end = 0;
+  for (int j = 0; j < nj; ++j)
+    if (flags[i0 + j] != 0) head |= 1u << j;
+  if (nj > 0) {
+    const bool next = i0 + nj >= n || flags[i0 + nj] != 0;
+    run_end = ((head >> 1) | (next ? 1u << (nj - 1) : 0u)) &
+              ((1u << nj) - 1u);
+    if (j0 + nj == rows) s_tail_cont = !next;
+  }
+  // A tile whose ids are all past capacity leaves `hint` = (tag, its
+  // number). Blocks start in index order, so a tile that reads it is a later
+  // one and its ids are past capacity too: it has nothing to sum and no slot
+  // to zero. It leaves a count of capacity + 1 for any tile that started
+  // with it and still looks back (the true count is no less), and is done.
+  if (!early &&
+      __syncthreads_or((unsigned)(seen >> 32) == (unsigned)tag &&
+                       t >= (int)(unsigned)seen)) {
+    if (tid == 0) st_relaxed64(cstat + t, past);
+    return;
+  }
+  // flags before this thread in its warp, and the head flags' scan that
+  // every channel shares (as in K2)
+  const int cnt = __popc(head);
+  int incl = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += u;
+  }
+  bool fw = head != 0;
+  const unsigned mask = seg_mask(fw);  // fw: inclusive over the warp
+  const int fw_prev = __shfl_up_sync(FULL, (int)fw, 1);
+  const bool ef = lane > 0 && fw_prev != 0;  // a head earlier in the warp
+  if (lane == 31) {
+    s_cnt[warp] = incl;
+    s_fw[warp] = fw;
+  }
+  __syncthreads();
+  int excl = incl - cnt, total = 0;  // flags before the thread / in the tile
+  bool head_before = ef;             // a run starts in the tile before it
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    const int c = s_cnt[w];
+    total += c;
+    if (w < warp) {
+      excl += c;
+      head_before = head_before || s_fw[w] != 0;
+    }
+  }
+
+  // the counts' look-back: publish the tile's count, add the counts of the
+  // tiles before it back to the nearest known prefix, publish the tile's
+  // own prefix
+  if (warp == 0) {
+    int before = 0;
+    if (t > 0) {
+      if (lane == 0)
+        st_relaxed64(cstat + t, hi_tag | ((unsigned long long)CS_AGG << 32) |
+                                    (unsigned)total);
+      for (int k0 = t - 1;; k0 -= 32) {
+        const int k = k0 - lane;  // lane 0 looks at the nearest tile
+        unsigned hi = CS_PREFIX, lo = 0;  // before the array: 0 flags
+        if (k >= 0) {
+          unsigned long long w;
+          do {
+            w = ld_relaxed64(cstat + k);
+            hi = (unsigned)(w >> 32);
+          } while ((hi & ~3u) != (unsigned)tag);
+          lo = (unsigned)w;
+        }
+        const unsigned pm = __ballot_sync(FULL, (hi & 3u) == CS_PREFIX);
+        const int p = pm ? __ffs(pm) - 1 : 32;  // the nearest prefix
+        int v = lane <= p ? (int)lo : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+        before += __shfl_sync(FULL, v, 0);
+        if (p < 32) break;
+      }
+    }
+    if (lane == 0) {
+      st_relaxed64(cstat + t, hi_tag | ((unsigned long long)CS_PREFIX << 32) |
+                                  (unsigned)(before + total));
+      s_excl = before;
+    }
+  }
+  __syncthreads();
+  const int before = s_excl;  // flags in the tiles before this one
+
+  // the slots no run can reach any more (see the note at the top)
+  {
+    const long long u_hi = (long long)before + ((long long)n - r0);
+    const long long u_lo = u_hi - (rows - total);
+    const long long a = min(u_lo, (long long)capacity) * ch;
+    const long long b = min(u_hi, (long long)capacity) * ch;
+    for (long long k = a + tid; k < b; k += THREADS) out[k] = 0.0f;
+  }
+  // Every id of the tile, the entering run's before - 1 included, is at or
+  // past capacity: nothing to sum, and no later tile reads this one's sums
+  // (its ids are no smaller). The rows are never read, and the tiles that
+  // start from now on learn it from `hint`.
+  if (before > capacity) {
+    if (tid == 0) st_relaxed64(hint, hi_tag | (unsigned)t);
+    return;
+  }
+  if (!early) stage_rows<THREADS>(sval, vals + r0 * ch, rows * ch, per);
+  cp_async_wait_all();
+  __syncthreads();  // sval complete
+
+  // K2_CG channels at a time: the thread's element (the sum of its last
+  // run), the warp's segmented scan, the warps' totals folded in order,
+  // then the row that ends a run writes that run's sum
+  const int id0 = before + excl - 1;  // the run that enters these rows
+  const float* my = sval + tid * stride;
+  for (int c0 = 0; c0 < ch; c0 += K2_CG) {
+    const int ng = min(K2_CG, ch - c0);
+    double v[K2_CG], e[K2_CG];
+#pragma unroll
+    for (int u = 0; u < K2_CG; ++u) v[u] = 0.0;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      if (j >= nj) break;
+#pragma unroll
+      for (int u = 0; u < K2_CG; ++u) {
+        if (head & (1u << j)) v[u] = 0.0;
+        if (u < ng) v[u] += (double)my[j * ch + c0 + u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K2_CG; ++u) {
+      v[u] = seg_scan(v[u], mask);
+      e[u] = __shfl_up_sync(FULL, v[u], 1);
+      if (lane == 0) e[u] = 0.0;
+      if (lane == 31) s_wv[c0 + u][warp] = v[u];
+    }
+    __syncthreads();
+    if (warp > 0 && !ef) {
+      // the sum that the warps before this one carry into it
+      double carry[K2_CG];
+#pragma unroll
+      for (int u = 0; u < K2_CG; ++u) carry[u] = 0.0;
+      for (int w = 0; w < warp; ++w) {
+        const bool reset = s_fw[w] != 0;
+#pragma unroll
+        for (int u = 0; u < K2_CG; ++u)
+          carry[u] = (reset ? 0.0 : carry[u]) + s_wv[c0 + u][w];
+      }
+#pragma unroll
+      for (int u = 0; u < K2_CG; ++u) e[u] = carry[u] + e[u];
+    }
+    bool has_head = head_before;  // the current run starts in this tile
+    int id = id0;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      if (j >= nj) break;
+      if (head & (1u << j)) {
+        has_head = true;
+        ++id;
+      }
+      const bool end = run_end & (1u << j);
+      const bool tile_end = j0 + j == rows - 1;
+#pragma unroll
+      for (int u = 0; u < K2_CG; ++u) {
+        if (head & (1u << j)) e[u] = 0.0;
+        if (u < ng) e[u] += (double)my[j * ch + c0 + u];
+      }
+      if (end && has_head) {
+        if (id < capacity) {  // a run that starts here has id >= 0
+#pragma unroll
+          for (int u = 0; u < K2_CG; ++u)
+            if (u < ng) out[(long long)id * ch + c0 + u] = (float)e[u];
+        }
+      } else if ((end || tile_end) && !has_head) {
+#pragma unroll
+        for (int u = 0; u < K2_CG; ++u)  // the first run, begun before
+          if (u < ng) s_head[c0 + u] = e[u];
+      }
+      if (tile_end) {
+#pragma unroll
+        for (int u = 0; u < K2_CG; ++u)
+          if (u < ng) s_tail[c0 + u] = e[u];
+      }
+    }
+  }
+  __syncthreads();
+
+  // publish, and look back for the run that enters this tile (K2's
+  // scheme): X_t = (no flag in t) ? X_{t-1} + tail_t : tail_t. A tile whose
+  // last run ends with it publishes a status only: nothing reads its sum.
+  // The run that enters has id before - 1; where that is not kept (rows
+  // before the first flag), nothing looks back for it, here or in any
+  // later tile it reaches.
+  if (warp == 0) {
+    const bool pass = total == 0;
+    const bool tail_cont = s_tail_cont != 0;
+    const int hid = before - 1;
+    if (lane == 0) {
+      if (tail_cont) {
+        double* dst = (pass ? abuf : xbuf) + (long long)t * MAX_CH;
+        for (int c = 0; c < ch; ++c) dst[c] = s_tail[c];
+      }
+      st_release(status + t, tag | (pass ? ST_AGG : ST_PREFIX));
+    }
+    // thread 0 holds the tile's first row: no flag there, a run enters
+    const bool head_cont = !(__shfl_sync(FULL, head, 0) & 1u);
+    if (head_cont && hid >= 0) {  // hid < capacity: before <= capacity
+      lookback_run_sum(status, tag, xbuf, abuf, t, ch, s_x);
+      if (!(pass && tail_cont)) {  // the run ends in this tile
+        for (int c = lane; c < ch; c += 32)
+          out[(long long)hid * ch + c] = (float)(s_x[c] + s_head[c]);
+      } else if (lane == 0) {
+        double* dst = xbuf + (long long)t * MAX_CH;
+        for (int c = 0; c < ch; ++c) dst[c] = s_x[c] + s_tail[c];
+        st_release(status + t, tag | ST_PREFIX);
+      }
+    }
+  }
+}
+
+// K1's grid: the tiles, then the blocks that zero the slots [n, capacity)
+int k1_tiles(int n) { return (n + K1_TILE - 1) / K1_TILE; }
+int k1_zero_blocks(int n, int ch, int capacity) {
+  const long long z = (long long)(capacity - min(n, capacity)) * ch;
+  return (int)((z + K1_ZERO_FLOATS - 1) / K1_ZERO_FLOATS);
+}
+
+int k1_threads(int ch) { return ch <= K1_NARROW_CH ? 128 : 256; }
+size_t k1_smem_bytes(int ch) {
+  const int threads = k1_threads(ch);
+  return sizeof(float) * (size_t)threads * (K1_TILE / threads * ch + 1);
+}
+
 size_t k2_smem_bytes(int ch) {
   return sizeof(float) * (size_t)K2_THREADS * (K2_RPT * ch + 1);
+}
+
+// Raise the kernel's dynamic shared memory limit where a tile needs more
+// than the 48 KB a launch gets by default.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-int pcs_segsum_tile_rows() { return TILE; }
-
 const char* pcs_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// K1. vals [n, ch] f32, flags [n] u8; scratch: tile_counts/tile_offsets
-// [ntiles] i32, tile_info [3 * ntiles] i32, part [2 * ntiles, ch] f64.
+// K1. vals [n, ch] f32, flags [n] u8 (nonzero: a run starts at the row);
+// out [capacity, ch] (capacity * ch < 2^31). Scratch, with ntiles =
+// ceil(n / pcs_segsum_flags_tile_rows()): hint [1] u64, status [ntiles] i32
+// and cstat [ntiles] u64, zero before the first call and then left as the
+// calls leave them; xbuf/abuf [ntiles * 16] f64 (any contents). epoch: 1 ..
+// 2^29 - 1, different from that of every earlier call on this scratch since
+// it was last zeroed. One kernel launch of pcs_segsum_flags_grid blocks;
+// calls that share the scratch must run in stream order.
 int pcs_segsum_flags(const float* vals, const uint8_t* flags, int n, int ch,
-                     int capacity, float* out, int* tile_counts,
-                     int* tile_offsets, int* tile_info, double* part,
+                     int capacity, float* out, int epoch,
+                     unsigned long long* hint, int* status,
+                     unsigned long long* cstat, double* xbuf, double* abuf,
                      void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (ch < 1 || ch > MAX_CH) return (int)cudaErrorInvalidValue;
-  cudaMemsetAsync(out, 0, sizeof(float) * (size_t)capacity * ch, s);
-  const int ntiles = ntiles_of(n);
-  if (ntiles > 0) {
-    tile_flag_count<<<ntiles, TILE, 0, s>>>(flags, n, tile_counts);
-    tile_offsets_scan<<<1, SCAN_THREADS, 0, s>>>(tile_counts, ntiles,
-                                                 tile_offsets);
-    tile_segsum<<<ntiles, TILE, sizeof(float) * ch * TILE, s>>>(
-        vals, n, ch, flags, tile_offsets, capacity, out, part, tile_info);
-    tile_fixup<<<(ntiles + FIXUP_THREADS - 1) / FIXUP_THREADS, FIXUP_THREADS,
-                 0, s>>>(ntiles, ch, capacity, part, tile_info, out);
-  }
-  return (int)cudaGetLastError();
+  if (ch < 1 || ch > MAX_CH || n < 0 || capacity < 1 || epoch < 1 ||
+      epoch >= (1 << 29) || (long long)capacity * ch >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = k1_smem_bytes(ch);
+  const int ntiles = k1_tiles(n);
+  const int grid = ntiles + k1_zero_blocks(n, ch, capacity);
+  auto launch = [&](auto kernel, int threads) {
+    const cudaError_t e = allow_smem(kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+        vals, flags, n, ch, capacity, ntiles, out, epoch << 2, hint, status,
+        cstat, xbuf, abuf);
+    return (int)cudaGetLastError();
+  };
+  return k1_threads(ch) == 128 ? launch(segsum_flags_kernel<128>, 128)
+                               : launch(segsum_flags_kernel<256>, 256);
+}
+
+int pcs_segsum_flags_grid(int n, int ch, int capacity) {
+  return k1_tiles(n) + k1_zero_blocks(n, ch, capacity);
 }
 
 // K2. vals [n, ch] f32, seg [n] i32 nondecreasing; out [capacity, ch]
@@ -680,12 +923,8 @@ int pcs_segsum_sorted(const float* vals, const int* seg, int n, int ch,
       (long long)capacity * ch >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const size_t smem = k2_smem_bytes(ch);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        segsum_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = allow_smem(segsum_sorted_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   const int ntiles = max(1, (n + K2_TILE - 1) / K2_TILE);
   segsum_sorted_kernel<<<ntiles, K2_THREADS, smem, (cudaStream_t)stream>>>(
       vals, seg, n, ch, capacity, out, state, xbuf, abuf);
@@ -695,5 +934,8 @@ int pcs_segsum_sorted(const float* vals, const int* seg, int n, int ch,
 int pcs_segsum_sorted_tile_rows() { return K2_TILE; }
 int pcs_segsum_sorted_threads() { return K2_THREADS; }
 int pcs_segsum_sorted_smem(int ch) { return (int)k2_smem_bytes(ch); }
+int pcs_segsum_flags_tile_rows() { return K1_TILE; }
+int pcs_segsum_flags_threads(int ch) { return k1_threads(ch); }
+int pcs_segsum_flags_smem(int ch) { return (int)k1_smem_bytes(ch); }
 
 }  // extern "C"

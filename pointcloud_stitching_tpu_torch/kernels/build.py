@@ -134,17 +134,18 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # img, h, w, v0, u0, iv, iu, nb, out, stream
     "pcs_patch_gather": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
-    # vals, flags(u8), n, ch, capacity, out, tile_counts, tile_offsets,
-    # tile_info, part(f64), stream
-    "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    # vals, flags(u8), n, ch, capacity, out, epoch, hint(u64), status(i32),
+    # cstat(u64), xbuf(f64), abuf(f64), stream
+    "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P),
     # vals, seg(i32), n, ch, capacity, out, state(i32), xbuf(f64),
     # abuf(f64), stream
     "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # query, refT, b, n, m, splits, idx, d2, stream
     "pcs_nn_batched": (_P, _P, _I, _I, _I, _I, _P, _P, _P),
-    # query, refT, jlo, jhi, b, n, m, query_tile, ref_block, idx, d2, stream
-    "pcs_nn_batched_ranged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                              _P),
+    # query, refT, jlo, jhi, b, n, m, query_tile, ref_block, chunk,
+    # blocks_per_sm, idx, d2, keys(u64), meta(i32), stream
+    "pcs_nn_batched_ranged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                              _P, _P, _P, _P),
 }
 
 _lib = None
@@ -159,12 +160,19 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        for name in ("pcs_segsum_tile_rows", "pcs_segsum_sorted_tile_rows",
-                     "pcs_segsum_sorted_threads", "pcs_nn_query_tile"):
-            getattr(lib, name).argtypes = []
+        # launch shapes, for a run to print and to hold against the
+        # Python side's constants: name -> number of int arguments
+        for name, nargs in (("pcs_segsum_sorted_tile_rows", 0),
+                            ("pcs_segsum_sorted_threads", 0),
+                            ("pcs_segsum_sorted_smem", 1),
+                            ("pcs_segsum_flags_grid", 3),
+                            ("pcs_segsum_flags_tile_rows", 0),
+                            ("pcs_segsum_flags_threads", 1),
+                            ("pcs_segsum_flags_smem", 1),
+                            ("pcs_nn_query_tile", 0),
+                            ("pcs_nn_ranged_grid", 1)):
+            getattr(lib, name).argtypes = [ctypes.c_int] * nargs
             getattr(lib, name).restype = ctypes.c_int
-        lib.pcs_segsum_sorted_smem.argtypes = [ctypes.c_int]
-        lib.pcs_segsum_sorted_smem.restype = ctypes.c_int
         lib.pcs_error_string.argtypes = [ctypes.c_int]
         lib.pcs_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -15,6 +15,11 @@ over a stride-subsampled reference bounds each query's NN distance,
 ``block_ranges`` turns the bounds and block bounding boxes into a range of
 reference blocks per query tile, and ``nn_batched_prepared_ranged`` (K4)
 sweeps only those blocks. The result equals brute force on valid queries.
+K4 cuts the ranges into items of equal size (512 queries x
+``NN_RANGED_CHUNK`` references), found on the device so that the host
+never reads the ranges, and a persistent grid takes them from a counter;
+the chunks of one query meet in a 64-bit (distance, index) key under
+``atomicMin``, so the result does not depend on the schedule.
 
 Contract (the TPU kernel's): squared distances by direct differences,
 ``((dx*dx) + dy*dy) + dz*dz`` in float32 with no ``|q|^2+|r|^2-2qr``
@@ -42,6 +47,12 @@ _PLAIN_REF_BLOCK = 1024
 NN_QUERY_TILE = 512
 NN_MAX_SPLITS = 7
 H100_SMS = 132
+# K4's work items: references per item (one stage of the kernel's 1024:
+# the smallest items balance the SMs best in chip_smoke.py's sweep, and
+# the blocks resident on an SM hide each other's staging) and blocks of the
+# persistent grid per SM (0: as many as fit, at most 8)
+NN_RANGED_CHUNK = 1024
+NN_RANGED_BLOCKS_PER_SM = 0
 
 
 def nn_splits(b: int, n: int, m: int) -> int:
@@ -161,6 +172,40 @@ def _nn_ranged_plain(query, refT, jlo, jhi, query_tile, ref_block):
                      lambda j: (lo <= j) & (j <= hi))
 
 
+def nn_ranged_chunks(jlo: torch.Tensor, jhi: torch.Tensor, n: int, m: int,
+                     query_tile: int, ref_block: int,
+                     chunk: int = NN_RANGED_CHUNK) -> torch.Tensor:
+    """K4's work items per (batch row, sub-tile of NN_QUERY_TILE queries):
+    [B, ceil(n / NN_QUERY_TILE)] int64, as its set-up kernel counts them.
+
+    A sub-tile sweeps the union of the non-empty reference ranges
+    ``[jlo * ref_block, min((jhi + 1) * ref_block, m))`` of the query tiles
+    it falls in, in chunks of ``chunk`` references; the sum is the number
+    of items one launch works through."""
+    nq = jlo.shape[1]
+    dev = jlo.device
+    lo = torch.clamp(jlo.long() * ref_block, 0, m)               # [B, nq]
+    hi = torch.clamp((jhi.long() + 1) * ref_block, 0, m)
+    q0 = torch.arange(0, n, NN_QUERY_TILE, device=dev)           # [nsub]
+    t_first = q0 // query_tile
+    t_last = torch.clamp((torch.clamp(q0 + NN_QUERY_TILE, max=n) - 1)
+                         // query_tile, max=nq - 1)
+    t = torch.arange(nq, device=dev)
+    use = ((t >= t_first[:, None]) & (t <= t_last[:, None])      # [nsub, nq]
+           & (lo < hi)[:, None, :])                              # [B, ., .]
+    ulo = torch.where(use, lo[:, None, :], m).amin(dim=-1)
+    uhi = torch.where(use, hi[:, None, :], 0).amax(dim=-1)
+    return -(-torch.clamp(uhi - ulo, min=0) // chunk)
+
+
+def nn_ranged_scratch_sizes(b: int, n: int) -> tuple[int, int]:
+    """(keys, meta): elements of K4's uint64 key array, one per query, and
+    of its int32 bookkeeping (item offsets [sub-tiles + 1], the item
+    counter, and a done counter per sub-tile)."""
+    ns = b * -(-n // NN_QUERY_TILE)
+    return b * n, 2 * ns + 2
+
+
 def nn_batched_prepared_ranged(query: torch.Tensor, refT: torch.Tensor,
                                jlo: torch.Tensor, jhi: torch.Tensor,
                                query_tile: int = 1024, ref_block: int = 1024,
@@ -172,7 +217,10 @@ def nn_batched_prepared_ranged(query: torch.Tensor, refT: torch.Tensor,
     references, one per tile of ``query_tile`` queries (see
     ``block_ranges``). Each query gets the first index of the minimum over
     its tile's range, so it equals brute force wherever the range holds
-    the query's nearest neighbour. Returns (idx [B, N] int32, d2 [B, N]).
+    the query's nearest neighbour; an empty range (jlo > jhi) gives
+    (+inf, 0). On a card the ranges are read on the device only (no host
+    sync): a set-up kernel and a persistent kernel, see ``csrc/nn.cu``.
+    Returns (idx [B, N] int32, d2 [B, N]).
     """
     _check_nn_args(query, refT)
     if query_tile < 1 or ref_block < 1:
@@ -191,13 +239,18 @@ def nn_batched_prepared_ranged(query: torch.Tensor, refT: torch.Tensor,
         raise ValueError("query, refT, jlo and jhi must be on one device")
     query, refT = query.contiguous(), refT.contiguous()
     jlo, jhi = jlo.contiguous(), jhi.contiguous()
-    idx = torch.empty((b, n), dtype=torch.int32, device=query.device)
-    d2 = torch.empty((b, n), dtype=torch.float32, device=query.device)
-    with torch.cuda.device(query.device):
+    dev = query.device
+    idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    d2 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    n_keys, n_meta = nn_ranged_scratch_sizes(b, n)
+    keys = torch.empty((n_keys,), dtype=torch.int64, device=dev)
+    meta = torch.empty((n_meta,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         err = library().pcs_nn_batched_ranged(
             query.data_ptr(), refT.data_ptr(), jlo.data_ptr(),
-            jhi.data_ptr(), b, n, m, query_tile, ref_block, idx.data_ptr(),
-            d2.data_ptr(), stream_handle(query))
+            jhi.data_ptr(), b, n, m, query_tile, ref_block, NN_RANGED_CHUNK,
+            NN_RANGED_BLOCKS_PER_SM, idx.data_ptr(), d2.data_ptr(),
+            keys.data_ptr(), meta.data_ptr(), stream_handle(query))
     check(err, "nn_batched_prepared_ranged")
     LAUNCHES["nn_batched_prepared_ranged"] += 1
     return idx, d2

@@ -6,7 +6,11 @@ keys. Two entry points, as in the JAX package:
 
   * ``segment_sum_from_flags`` (K1): segment ids are ``cumsum(flags) - 1``,
     derived inside the kernel from the boundary flags; used by the global
-    (unbatched) voxel pass.
+    (unbatched) voxel pass. Its kernel is one launch too: a look-back over
+    the tiles' flag counts gives every tile its first id, K2's scan and
+    look-back give the sums, the slots that no run reaches are zeroed by
+    the tiles themselves (no memset), and a tile whose ids are all past the
+    capacity stops before it reads its rows.
   * ``segment_sum_sorted`` (K2): precomputed nondecreasing ids (they may
     jump, as the flattened camera batch makes them), discard id =
     capacity; used by the flattened batched pass. Its kernel is one launch:
@@ -34,29 +38,63 @@ from .build import LAUNCHES, check, library, stream_handle, use_kernel
 MAX_CHANNELS = 16
 
 
-# rows per K2 block (csrc/segment_reduce.cu K2_TILE; chip_smoke.py checks
-# that the two agree)
+# rows per block of K1 and K2 (csrc/segment_reduce.cu K2_TILE; chip_smoke.py
+# checks that the two agree), and the floats that one of K1's zero-only
+# blocks clears (K1_ZERO_FLOATS)
 K2_TILE_ROWS = 1024
+K1_ZERO_FLOATS = 16384
 
-# K2's scratch, per (device, stream), allocated once and grown with the tile
-# count: the look-back state ([3 + tiles] int32, zero; the kernel's last
-# block leaves it zero) and the tiles' published partials ([2, tiles, 16]
-# float64), with their addresses. One stream runs its calls in order, so
-# they can share it; another stream gets its own.
+# The look-back scratch of K1 and of K2, per (kernel, device, stream),
+# allocated once and grown with the tile count: the state ([3 + tiles]
+# int32: K2's counters or K1's 64-bit hint word, then a status per tile) and
+# K1's flag-count words
+# ([tiles] int64), both zero at first, and the tiles' published partials
+# ([2, tiles, 16] float64). K2's last block leaves its state zero; K1
+# stamps what it publishes with the call's epoch instead (a word of another
+# epoch reads as unpublished), counted here. One stream runs its calls in
+# order, so they can share a scratch; another stream gets its own.
 _SCRATCH: dict = {}
+_MAX_EPOCH = 2 ** 29 - 1
 
 
-def _k2_scratch(dev: torch.device, stream: int, ntiles: int):
-    key = (dev.index, stream)
+class _Scratch:
+    def __init__(self, dev: torch.device, tiles: int):
+        self.tiles = tiles
+        self.state = torch.zeros((tiles + 3,), dtype=torch.int32, device=dev)
+        self.cstat = torch.zeros((tiles,), dtype=torch.int64, device=dev)
+        self.part = torch.empty((2, tiles, MAX_CHANNELS),
+                                dtype=torch.float64, device=dev)
+        self.epoch = 0
+        # addresses: state, its per-tile statuses, cstat, xbuf, abuf
+        self.ptrs = (self.state.data_ptr(), self.state[3:].data_ptr(),
+                     self.cstat.data_ptr(), self.part[0].data_ptr(),
+                     self.part[1].data_ptr())
+
+    def next_epoch(self) -> int:
+        """An epoch that no word in the scratch carries."""
+        if self.epoch >= _MAX_EPOCH:     # start over on clean words
+            self.state.zero_()
+            self.cstat.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+def _lookback_scratch(kernel: str, dev: torch.device, stream: int,
+                      ntiles: int) -> _Scratch:
+    key = (kernel, dev.index, stream)
     sc = _SCRATCH.get(key)
-    if sc is None or sc[0] < ntiles:
-        tiles = max(ntiles, 1024)
-        state = torch.zeros((tiles + 3,), dtype=torch.int32, device=dev)
-        part = torch.empty((2, tiles, MAX_CHANNELS), dtype=torch.float64,
-                           device=dev)
-        sc = _SCRATCH[key] = (tiles, state, part, state.data_ptr(),
-                              part[0].data_ptr(), part[1].data_ptr())
-    return sc[3:]
+    if sc is None or sc.tiles < ntiles:
+        sc = _SCRATCH[key] = _Scratch(dev, max(ntiles, 1024))
+    return sc
+
+
+def k1_grid(n: int, ch: int, capacity: int) -> tuple[int, int]:
+    """(tiles, zero-only blocks) of K1's one launch: a block per
+    K2_TILE_ROWS rows, then a block per K1_ZERO_FLOATS floats of the slots
+    [n, capacity), which no row can reach."""
+    return (-(-n // K2_TILE_ROWS),
+            -(-(capacity - min(n, capacity)) * ch // K1_ZERO_FLOATS))
 
 
 def _discard_out_of_range(seg: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -94,8 +132,10 @@ def segment_sum_from_flags(vals: torch.Tensor, flags: torch.Tensor,
       vals: [N, ch] float32; rows of invalid points must be zeroed.
       flags: [N] bool (or integer, nonzero = set): a new segment starts at
         the row. Rows before the first flag get id -1 and drop; ids at or
-        past ``capacity`` drop.
-    Returns [capacity, ch] float32 sums.
+        past ``capacity`` drop; slots that no run reaches are 0.
+    Returns [capacity, ch] float32 sums. On a card: one kernel launch, with
+    look-back scratch kept per (device, stream) as K2's is; rows whose ids
+    are all past ``capacity`` are never read.
     """
     _check_vals(vals, capacity)
     if flags.shape != vals.shape[:1]:
@@ -111,21 +151,17 @@ def segment_sum_from_flags(vals: torch.Tensor, flags: torch.Tensor,
     f8 = (flags if flags.dtype == torch.bool else flags != 0).contiguous()
     f8 = f8.view(torch.uint8)
     n, ch = vals.shape
-    lib = library()
-    ntiles = -(-n // lib.pcs_segsum_tile_rows())
+    if capacity * ch >= 2 ** 31:
+        raise ValueError(f"capacity x channels {capacity} x {ch} >= 2^31")
     dev = vals.device
+    stream = stream_handle(vals)
+    sc = _lookback_scratch("k1", dev, stream, -(-n // K2_TILE_ROWS))
+    hint, status, cstat, xbuf, abuf = sc.ptrs   # hint: the state's head
     out = torch.empty((capacity, ch), dtype=torch.float32, device=dev)
-    tile_counts = torch.empty((max(ntiles, 1),), dtype=torch.int32, device=dev)
-    tile_offsets = torch.empty_like(tile_counts)
-    tile_info = torch.empty((max(ntiles, 1) * 3,), dtype=torch.int32,
-                            device=dev)
-    part = torch.empty((2 * max(ntiles, 1), ch), dtype=torch.float64,
-                       device=dev)
     with torch.cuda.device(dev):
-        err = lib.pcs_segsum_flags(
+        err = library().pcs_segsum_flags(
             vals.data_ptr(), f8.data_ptr(), n, ch, capacity, out.data_ptr(),
-            tile_counts.data_ptr(), tile_offsets.data_ptr(),
-            tile_info.data_ptr(), part.data_ptr(), stream_handle(vals))
+            sc.next_epoch(), hint, status, cstat, xbuf, abuf, stream)
     check(err, "segment_sum_from_flags")
     LAUNCHES["segment_sum_from_flags"] += 1
     return out
@@ -162,7 +198,8 @@ def segment_sum_sorted(vals: torch.Tensor, seg: torch.Tensor, capacity: int,
         raise ValueError(f"capacity x channels {capacity} x {ch} >= 2^31")
     dev = vals.device
     stream = stream_handle(vals)
-    state, xbuf, abuf = _k2_scratch(dev, stream, -(-n // K2_TILE_ROWS))
+    state, _, _, xbuf, abuf = _lookback_scratch(
+        "k2", dev, stream, -(-n // K2_TILE_ROWS)).ptrs
     out = torch.empty((capacity, ch), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = library().pcs_segsum_sorted(

@@ -9,12 +9,20 @@ earlier commit, works the same way) and prints, on the flagship scene of
 ``chip_smoke.py`` (8 x 848x480 u16, ring point-to-plane ICP with 5
 iterations, a 262144-slot 1 cm output grid):
 
-  * K1, K2 (the ring-ICP shape and the per-camera 1 cm pass) and K3 (the
-    ring shape) on ``chip_smoke.kernel_inputs``, timed by
-    ``chip_smoke.time_in_turns``: device time, the card held by a spinning
-    kernel while 20 calls are enqueued, and the time per call back to back;
-    and the host time per call of the wrapper and of the plain version
-    (20 calls enqueued, no sync: Python and launches alone);
+  * K1 (the global pass at the saturated 1 cm leaf, and at the 6 cm leaf
+    into a grid that holds every voxel),
+    K2 (the ring-ICP shape and the per-camera 1 cm pass) and K3 (the ring
+    shape) on ``chip_smoke.kernel_inputs``, and K4 on
+    ``chip_smoke.k4_inputs`` (the first ICP iteration of the registration
+    path, 131072 x 131072), timed by ``chip_smoke.time_in_turns``: device
+    time, the card held by a spinning kernel while the calls are enqueued
+    (20, for K4 5), and the time per call back to back; and the host time
+    per call of the wrapper and of the plain version (calls enqueued, no
+    sync: Python and launches alone). K2 is also timed on the camera
+    pass's rows with ids that never repeat (no run crosses a tile), to set
+    the cost of its look-back chains apart; and the ms per pruned ICP
+    iteration (K3 coarse pass + K4 + solve) on the same clouds, with the
+    device's busy time per iteration from ``torch.profiler``;
   * per stitch stage and frame, mean of 20 frames of the real
     ``StitchingPipeline`` with the kernels ('auto') and with the plain
     versions ('torch'): host ms and device span (CUDA events) of each call
@@ -131,16 +139,18 @@ def main() -> int:
         return 2
     tree = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else REPO
     sys.path.insert(0, tree)
+    sys.path.insert(0, os.path.join(REPO, "tests"))    # oracle.py's scenes
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     CS = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(CS)
     import pointcloud_stitching_tpu_torch as P
     from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
-        nn_batched_prepared)
+        nn_batched_prepared, nn_batched_prepared_ranged)
     from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
         segment_sum_from_flags, segment_sum_sorted)
     from pointcloud_stitching_tpu_torch.models import stitcher as ST
+    from pointcloud_stitching_tpu_torch.ops import icp
     from pointcloud_stitching_tpu_torch.ops import voxel as V
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,23 +167,74 @@ def main() -> int:
 
     vals, flags = ki.k1
     q, _, _, refT = ki.k3
-    cases = [("K1 segment_sum_from_flags", lambda impl: segment_sum_from_flags(
-        vals, flags, 262144, impl=impl))]
+    # (name, fn(impl), timed calls per turn)
+    vals6, flags6 = ki.k1_exact
+    cases = [("K1 segment_sum_from_flags, 1 cm (packed, saturated)",
+              lambda impl: segment_sum_from_flags(vals, flags, 262144,
+                                                  impl=impl), 20),
+             ("K1 segment_sum_from_flags, 6 cm (exact) into 2^21 slots: "
+              "every row kept",
+              lambda impl: segment_sum_from_flags(vals6, flags6, 2 ** 21,
+                                                  impl=impl), 20)]
     for tag, v, s, c in ki.k2:
         cases.append((f"K2 segment_sum_sorted, {tag}",
                       lambda impl, v=v, s=s, c=c: segment_sum_sorted(
-                          v, s, c, impl=impl)))
+                          v, s, c, impl=impl), 20))
+    _, v_cam, s_cam, c_cam = ki.k2[-1]
+    s_flat = torch.arange(s_cam.numel(), dtype=torch.int32, device=dev)
+    cases.append(("K2 segment_sum_sorted, camera pass's rows, ids that "
+                  "never repeat", lambda impl: segment_sum_sorted(
+                      v_cam, s_flat, c_cam, impl=impl), 20))
     cases.append(("K3 nn_batched_prepared, ring", lambda impl:
-                  nn_batched_prepared(q, refT, impl=impl)))
+                  nn_batched_prepared(q, refT, impl=impl), 20))
+    scene = CS.registration_scene(dev)
+    k4 = CS.k4_inputs(dev, scene)
+    cases.append(("K4 nn_batched_prepared_ranged, registration",
+                  lambda impl: nn_batched_prepared_ranged(
+                      k4.q, k4.refT, k4.jlo, k4.jhi,
+                      query_tile=CS.K4_QUERY_TILE, ref_block=CS.K4_REF_BLOCK,
+                      impl=impl), 5))
     print("kernels: device ms (card held) / per call back to back / plain "
           "device ms; host ms per call: wrapper / plain")
-    for name, fn in cases:
+    for name, fn, reps in cases:
         ms, plain_ms, call_ms = CS.time_in_turns(lambda: fn("cuda"),
-                                                 lambda: fn("torch"))
-        h_k, h_p = host_ms(lambda: fn("cuda")), host_ms(lambda: fn("torch"))
+                                                 lambda: fn("torch"), reps)
+        h_k = host_ms(lambda: fn("cuda"), reps)
+        h_p = host_ms(lambda: fn("torch"), reps)
         print(f"    {name}: {ms:.4f} / {call_ms:.4f} / {plain_ms:.4f}; "
               f"host {h_k:.4f} / {h_p:.4f}", flush=True)
-    del ki.k2, vals, flags, cases
+
+    # the pruned ICP iteration: host clock is noisy on a shared host, so
+    # six readings, least and median; then one profiled call for the
+    # device's share of it
+    k = 5
+
+    def icp_call():
+        return icp(scene.src, scene.dst, init_T=k4.T0, iterations=k,
+                   max_corr_dist=0.25, nn_impl="auto", prune=True)
+
+    icp_call()
+    torch.cuda.synchronize()
+    reads = sorted(CS.cuda_ms(icp_call, 4, prefill=False) / k
+                   for _ in range(6))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        icp_call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in kern) / 1e3 / k
+    print(f"pruned ICP (K3 coarse + K4 + solve), ms per iteration at 131072 "
+          f"x 131072 (CUDA events over {k}-iteration icp calls, 6 readings "
+          f"of 4 calls): least {reads[0]:.3f}, median "
+          f"{(reads[2] + reads[3]) / 2:.3f}, most {reads[-1]:.3f}; profiler "
+          f"over one call: device busy {busy:.3f} ms per iteration in "
+          f"{sum(e.count for e in kern) / k:.0f} device operations",
+          flush=True)
+    for e in sorted(kern, key=lambda e: -e.device_time_total)[:4]:
+        print(f"    {e.key[:60]}: {e.count / k:.1f} per iteration, "
+              f"{e.device_time_total / e.count:.2f} us each")
+    del ki.k2, vals, flags, vals6, flags6, cases, k4, scene, v_cam, s_cam
+    del s_flat
 
     for impl in ("auto", "torch"):
         cfg = CS.flagship_cfg(P.StitchConfig, kernel_impl=impl)
@@ -209,7 +270,8 @@ def main() -> int:
           f"operations per frame, device busy {busy:.3f} ms per frame (idle "
           f"share {1 - busy / frame_ms:.3f} of the unprofiled frame)")
     for e in sorted(kern, key=lambda e: -e.device_time_total):
-        if any(k in e.key for k in ("segsum", "tile_", "nn_batched")):
+        if any(k in e.key for k in ("segsum", "tile_", "nn_batched",
+                                    "nn_ranged")):
             print(f"    {e.key[:60]}: {e.count / frames:.0f} per frame, "
                   f"{e.device_time_total / e.count:.2f} us each")
     return 0

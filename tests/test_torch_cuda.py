@@ -19,13 +19,14 @@ import pointcloud_stitching_tpu_torch as P
 from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
     block_ranges, nearest_neighbors_pallas_batched, nearest_neighbors_pruned,
-    NN_MAX_SPLITS, nn_batched_prepared, nn_batched_prepared_ranged,
-    nn_splits, prepare_ref_batched)
+    NN_MAX_SPLITS, NN_RANGED_CHUNK, nn_batched_prepared,
+    nn_batched_prepared_ranged, nn_ranged_chunks, nn_splits,
+    prepare_ref_batched)
 from pointcloud_stitching_tpu_torch.kernels.patch_gather import patch_gather
 from pointcloud_stitching_tpu_torch.models import tsdf as TM
 from pointcloud_stitching_tpu_torch.ops import icp_converge
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
-    segment_sum_from_flags, segment_sum_sorted)
+    k1_grid, segment_sum_from_flags, segment_sum_sorted)
 from oracle import random_se3, synth_depth_frame
 
 pytestmark = pytest.mark.cuda
@@ -107,7 +108,8 @@ def _k2_case(case: str):
     rng = np.random.default_rng(["long_run", "discard_mid", "gaps",
                                  "out_of_range", "n1", "n511", "n513",
                                  "ch1", "ch16"].index(case) + 40)
-    ch = {"ch1": 1, "ch16": 16}.get(case, 7)
+    # up to 4 channels the kernel gives a thread 8 rows, above that 4
+    ch = {"ch1": 1, "ch16": 16, "ch4": 4, "unsaturated_long": 4}.get(case, 7)
     if case == "long_run":        # one run over 30 tiles of 1024 rows
         seg = np.concatenate([np.arange(100), np.full(30_000, 100),
                               np.arange(101, 400)])
@@ -204,6 +206,114 @@ def test_sorted_segment_kernel_on_two_streams(cuda_device):
     for k, out in enumerate(outs):
         v, s, c = ins[k % 2]
         assert torch.equal(out, segment_sum_sorted(v, s, c, impl="torch"))
+
+
+K1_CASES = ["long_run", "no_flag", "late_flag", "saturated", "all_flags",
+            "n0", "n1", "n1_flag", "n1023", "n1025", "ch1", "ch16",
+            "big_capacity", "saturated_long", "unsaturated_long", "ch4"]
+
+
+def _k1_case(case: str):
+    """(vals [N, ch], flags [N], capacity) for one K1 case, from a
+    generator of its own."""
+    rng = np.random.default_rng(K1_CASES.index(case) + 70)
+    # up to 4 channels the kernel gives a thread 8 rows, above that 4
+    ch = {"ch1": 1, "ch16": 16, "ch4": 4, "unsaturated_long": 4}.get(case, 7)
+    # the long cases have more tiles than the card holds blocks at once
+    n = {"n0": 0, "n1": 1, "n1_flag": 1, "n1023": 1023, "n1025": 1025,
+         "saturated_long": 1_500_000,
+         "unsaturated_long": 1_500_000}.get(case, 40_000)
+    flags = rng.random(n) < 0.02
+    cap = 1500
+    if case in ("long_run", "ch4"):   # one run over 30 tiles of 1024 rows
+        flags[3000:33_800] = False
+        flags[3000] = True
+    elif case == "no_flag":       # every id is -1: all slots read 0
+        flags[:] = False
+    elif case == "late_flag":     # 20 tiles of id -1 before the first run
+        flags[:20_500] = False
+    elif case == "saturated":     # most runs lie past the capacity
+        flags = rng.random(n) < 0.6
+        cap = 3000
+    elif case == "saturated_long":    # the ids pass the capacity early on
+        flags = rng.random(n) < 0.5
+        cap = 20_000
+    elif case == "unsaturated_long":  # every row kept, runs of 1 to ~60 rows
+        flags = rng.random(n) < 0.08
+        cap = 150_000
+    elif case == "all_flags":     # runs of one row, fewer than the slots
+        flags[:] = True
+        cap = 50_000
+    elif case == "n1_flag":
+        flags[:] = True
+    elif case == "big_capacity":  # slots past the row count are zeroed too
+        cap = 200_000
+    vals = rng.normal(size=(n, ch)).astype(np.float32)
+    return vals, flags, cap
+
+
+@pytest.mark.parametrize("case", K1_CASES)
+def test_flags_segment_kernel_matches_plain_bitwise(cuda_device, case):
+    """K1 (one launch) against its plain version bit for bit, two launches
+    give the same bits (the state is left clean), and every slot past the
+    last run reads 0."""
+    vals, flags, cap = _k1_case(case)
+    v = torch.from_numpy(vals).to(cuda_device)
+    f = torch.from_numpy(flags).to(cuda_device)
+    kb.reset_launches()
+    # the outputs reuse freed blocks of NaN, so a slot that the kernel
+    # leaves unwritten cannot pass for a zero
+    junk = [torch.full((cap, vals.shape[1]), float("nan"),
+                       device=cuda_device) for _ in range(2)]
+    del junk
+    got = segment_sum_from_flags(v, f, cap, impl="cuda")
+    again = segment_sum_from_flags(v, f, cap, impl="cuda")
+    want = segment_sum_from_flags(v, f, cap, impl="torch")
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["segment_sum_from_flags"] == 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    runs = int(flags.sum())
+    assert not bool(got[min(runs, cap):].any())
+    tiles, zero_blocks = k1_grid(len(flags), vals.shape[1], cap)
+    assert kb.library().pcs_segsum_flags_grid(
+        len(flags), vals.shape[1], cap) == tiles + zero_blocks
+
+
+def test_flags_segment_kernel_takes_integer_and_unaligned_flags(cuda_device):
+    """Flags as uint8 counts (nonzero = set) and as a view that starts one
+    byte into its storage give the plain version's sums."""
+    vals, flags, cap = _k1_case("long_run")
+    v = torch.from_numpy(vals).to(cuda_device)
+    f = torch.from_numpy(flags).to(cuda_device)
+    want = segment_sum_from_flags(v, f, cap, impl="torch")
+    counts = f.to(torch.uint8) * 7
+    assert torch.equal(segment_sum_from_flags(v, counts, cap, impl="cuda"),
+                       want)
+    shifted = torch.cat([f[:1], f])[1:]
+    assert shifted.data_ptr() % 4 == 1 and shifted.is_contiguous()
+    assert torch.equal(segment_sum_from_flags(v, shifted, cap, impl="cuda"),
+                       want)
+
+
+def test_flags_segment_kernel_on_two_streams(cuda_device):
+    """Calls on two streams at once each keep their own look-back state."""
+    cases = [_k1_case(c) for c in ("long_run", "saturated")]
+    ins = [(torch.from_numpy(v).to(cuda_device),
+            torch.from_numpy(f).to(cuda_device), c) for v, f, c in cases]
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in ins]
+    outs = []
+    for st in streams:
+        st.wait_stream(main)
+    for _ in range(5):
+        for st, (v, f, c) in zip(streams, ins):
+            with torch.cuda.stream(st):
+                outs.append(segment_sum_from_flags(v, f, c, impl="cuda"))
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        v, f, c = ins[k % 2]
+        assert torch.equal(out, segment_sum_from_flags(v, f, c, impl="torch"))
 
 
 def test_voxel_batched_flat_ids_never_decrease(cuda_device, monkeypatch):
@@ -407,6 +517,66 @@ def test_ranged_tie_goes_to_the_lower_index(cuda_device):
             q.to(cuda_device), refT, lo[:, :nq], lo[:, :nq] + 2,
             query_tile=qt, ref_block=2048, impl="cuda")
         assert bool((gi == 700).all()) and bool((gd == 0).all())
+
+
+@pytest.mark.parametrize("query_tile", [1024, 128])
+def test_ranged_kernel_uneven_ranges(cuda_device, query_tile):
+    """K4 on ranges of very different lengths in one launch (B = 3, M not a
+    multiple of ref_block): a tile that sweeps every block beside tiles that
+    sweep one, empty ranges (jlo > jhi) giving (+inf, 0), ranges that run
+    past the last block, and a masked and a NaN query; equal to the plain
+    version on every query, twice. (K4 keeps nothing between calls, its
+    scratch is allocated by each, so there is no two-stream case.)"""
+    rng = np.random.default_rng(80)
+    b, n, m, rb = 3, 5000, 30_001, 2048
+    nq, nm = -(-n // query_tile), -(-m // rb)
+    q_np = rng.uniform(-1, 1, (b, n, 3)).astype(np.float32)
+    q_np[0, 17] = np.nan
+    q = torch.from_numpy(q_np).to(cuda_device)
+    r = torch.from_numpy(rng.uniform(-1, 1, (b, m, 3)).astype(np.float32))
+    refT = prepare_ref_batched(r.to(cuda_device), torch.from_numpy(
+        rng.random((b, m)) > 0.1).to(cuda_device))
+    jlo = rng.integers(0, nm, (b, nq))
+    jhi = jlo.copy()                        # most tiles sweep one block
+    jlo[:, 1], jhi[:, 1] = 0, nm - 1        # one sweeps them all
+    jlo[:, 2], jhi[:, 2] = 5, 3             # empty
+    jlo[1, 0], jhi[1, 0] = nm - 2, nm + 3   # past the last block
+    jlo[2, nq - 1], jhi[2, nq - 1] = 9, 0   # the ragged tile, empty
+    lo = torch.from_numpy(jlo.astype(np.int32)).to(cuda_device)
+    hi = torch.from_numpy(jhi.astype(np.int32)).to(cuda_device)
+    chunks = nn_ranged_chunks(lo, hi, n, m, query_tile, rb)
+    assert int(chunks.max()) == -(-m // NN_RANGED_CHUNK)
+    kw = dict(query_tile=query_tile, ref_block=rb)
+    gi, gd = nn_batched_prepared_ranged(q, refT, lo, hi, impl="cuda", **kw)
+    ai, ad = nn_batched_prepared_ranged(q, refT, lo, hi, impl="cuda", **kw)
+    wi, wd = nn_batched_prepared_ranged(q, refT, lo, hi, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(gi, wi) and torch.equal(gd, wd)
+    assert torch.equal(gi, ai) and torch.equal(gd, ad)
+    empty = slice(2 * query_tile, 3 * query_tile)
+    assert bool((gi[:, empty] == 0).all()) and bool(gd[:, empty].isinf().all())
+    assert int(gi[0, 17]) == 0 and bool(gd[0, 17].isinf())
+
+
+def test_ranged_tie_across_chunks_goes_to_the_lower_index(cuda_device):
+    """Equal references in two work items (chunks) of one range, and in two
+    stages of one chunk: the lower index wins in both."""
+    m = 3 * NN_RANGED_CHUNK + 100
+    r = torch.zeros((1, m, 3))
+    r[0, :, 0] = torch.arange(m, dtype=torch.float32) + 10.0
+    first, second = 300, 2 * NN_RANGED_CHUNK + 50     # chunks 0 and 2
+    r[0, first] = r[0, second] = torch.tensor([1.0, 2.0, 0.0])
+    near, later = NN_RANGED_CHUNK + 10, NN_RANGED_CHUNK + 1500  # chunk 1
+    r[0, near] = r[0, later] = torch.tensor([-4.0, 0.0, 0.0])
+    q = torch.tensor([1.0, 2.0, 0.0]).repeat(1, 700, 1)
+    q[0, 1::2] = torch.tensor([-4.0, 0.0, 0.0])
+    refT = prepare_ref_batched(r.to(cuda_device), None)
+    lo = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    gi, gd = nn_batched_prepared_ranged(
+        q.to(cuda_device), refT, lo, lo + 3, query_tile=1024,
+        ref_block=NN_RANGED_CHUNK, impl="cuda")
+    assert bool((gi[0, 0::2] == first).all())
+    assert bool((gi[0, 1::2] == near).all()) and bool((gd == 0).all())
 
 
 def test_pruned_icp_converge_launches_k4(rng, cuda_device):
