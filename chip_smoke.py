@@ -7,7 +7,9 @@ configuration (8 cameras of 848x480 u16 depth, ring point-to-plane ICP with
 (``register_pair`` / ``register_global`` / the register CLI) at 131k x 131k
 points and the TSDF scene model (``models.tsdf``: integrate, extract,
 save/load, raycast, track and the mesh CLI) at 4 x 848x480 into a 256^3
-volume, and checks the five hand-written CUDA kernels on those paths:
+volume, the streaming runtime (``runtime/``: fake camera servers, the
+pipelined client, the stitch CLI and the camera test) at 8 x 848x480, and
+checks the five hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -17,9 +19,9 @@ volume, and checks the five hand-written CUDA kernels on those paths:
      (device time, the queue held by a spinning kernel while the calls are
      enqueued; the time per call back to back beside it): K1 bit for bit on
      the packed branch of the global pass (and whether the exact branch is
-     bitwise too), two launches equal, its one launch's grid printed; K2 bit
-     for bit at
-     the ring-ICP shape and at the per-camera 1 cm pass, two launches equal,
+     bitwise too), two launches equal, its one launch's grid printed, and
+     at 10 channels on the coloured global pass (its own kernels entry); K2
+     bit for bit at the ring-ICP shape and at the per-camera 1 cm pass, two launches equal,
      faster than index_add_, its launch configuration printed; K3 bit for
      bit at the ring shape (a tie across two reference slices goes to the
      lower index; S and the grid printed), there at every split count S
@@ -29,7 +31,10 @@ volume, and checks the five hand-written CUDA kernels on those paths:
      'torch', at the saturated 1 cm leaf and at an unsaturated 6 cm leaf;
      outputs must agree and the kernels' launch counts must show that the
      'auto' run went through them (5 NN, 1 K1 and 1 K2 launch per frame at
-     the flagship config);
+     the flagship config); then the coloured step (uint8 colour from seed
+     1, 10 channels through K1): 'auto' = 'torch' bit for bit, the same
+     launches, and mapped colour with the depth intrinsics and identity
+     depth->colour extrinsics equal to depth-aligned colour;
   5. an independent check of the no-ICP step against the numpy oracle in
      tests/oracle.py;
   6. steady-state ms/frame and points/s, host syncs per frame, peak memory;
@@ -51,7 +56,17 @@ volume, and checks the five hand-written CUDA kernels on those paths:
      bit, with and without colour, and K5's launches (one per gathered
      plane per camera); five keyframes, then extract_mesh + weld_mesh
      against the analytic surface, save_volume and the mesh CLI as a
-     subprocess; raycast and track against the analytic scene; timings.
+     subprocess; raycast and track against the analytic scene; timings;
+  9. the streaming runtime: 8 fake camera servers on loopback (848x480,
+     snappy from the port's native codec, one static frame each) feeding
+     ``MulticameraClient`` on the flagship config, anchored, from pinned
+     staging buffers: 30 frames at sync_every=1 and 30 at sync_every=4,
+     then again with depth-aligned colour; every streamed output equal to
+     a direct ``StitchingPipeline`` call bit for bit, host syncs per frame
+     at most the direct call's + 1, the kernels' launches per frame; fps,
+     p50/p99 latency, points/s, the stage table, peak memory; then the
+     stitch CLI (20 frames, --save-dir, --tsdf-leaf) and ``camera_test
+     --deproject`` as subprocesses against the servers.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -206,6 +221,14 @@ def kernel_inputs(dev):
     ijk = V.voxel_indices(fused.xyz, fused.mask, 0.01)
     flags, vals, _ = V._sorted_segments_packed(fused, 0.01, ijk)
     flags6, vals6 = V._sorted_segments(fused, 0.06)
+    # K1 at 10 channels: the coloured global pass (bench.py's coloured
+    # cell: uint8 colours from seed 1), packed branch at 1 cm
+    colors = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (NCAM, H, W, 3), dtype=np.uint8)).to(dev)
+    fused_c = fused.replace(rgb=torch.where(
+        fused.mask[:, None], colors.reshape(-1, 3).to(torch.float32), 0.0))
+    flags_c, vals_c, _ = V._sorted_segments_packed(fused_c, 0.01, ijk)
+    del fused_c
 
     # K2: the batched ICP voxel pass (exact branch, normals in rgb), and
     # the per-camera 1 cm pass of phase 4's second run (packed branch), in
@@ -244,7 +267,8 @@ def kernel_inputs(dev):
     q[:, 0] = r[:, 700]
     return types.SimpleNamespace(
         ext_np=ext_np, depths_np=depths_np, depths=depths, intr=intr,
-        k1=(vals, flags), k1_exact=(vals6, flags6), k2=k2,
+        colors=colors, k1=(vals, flags), k1_exact=(vals6, flags6),
+        k1_rgb=(vals_c, flags_c), k2=k2,
         k3=(q, r, rmask, prepare_ref_batched(r, rmask)), rng=rng)
 
 
@@ -270,14 +294,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/8 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/9 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/8 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/9 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -288,6 +312,7 @@ def main() -> int:
     ki = kernel_inputs(dev)
     ext_np, depths_np, depths, intr = ki.ext_np, ki.depths_np, ki.depths, \
         ki.intr
+    colors = ki.colors
     kernels = {}
 
     def report(name, source, replaces, err, times, moved, ops,
@@ -330,7 +355,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/8 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/9 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -386,6 +411,39 @@ def main() -> int:
         f"ms), plain {t6[1]:.4f} ms, bound {b6:.4f} ms")
     del vals, flags, vals6, flags6, g6, g6_again, w6, got, got_again, want
     del seg_ids, ga, wa
+
+    # K1 at 10 channels: the coloured global pass (packed branch: integer
+    # channels, bit for bit)
+    vals_c, flags_c = ki.k1_rgb
+    gc = segment_sum_from_flags(vals_c, flags_c, cap, impl="cuda")
+    gc_again = segment_sum_from_flags(vals_c, flags_c, cap, impl="cuda")
+    wc = segment_sum_from_flags(vals_c, flags_c, cap, impl="torch")
+    torch.cuda.synchronize()
+    check(torch.equal(gc, wc), "K1 at 10 channels differs from plain")
+    check(torch.equal(gc, gc_again), "K1 at 10 channels: two launches differ")
+    kc = k1_grid(vals_c.shape[0], vals_c.shape[1], cap)
+    check(lib.pcs_segsum_flags_grid(vals_c.shape[0], vals_c.shape[1], cap)
+          == sum(kc), "K1's 10-channel grid differs between "
+          "csrc/segment_reduce.cu and segment_reduce.py")
+    tc = time_in_turns(
+        lambda: segment_sum_from_flags(vals_c, flags_c, cap, impl="cuda"),
+        lambda: segment_sum_from_flags(vals_c, flags_c, cap, impl="torch"))
+    rows_c = int((torch.cumsum(flags_c.to(torch.int32), 0) <= cap).sum())
+    ch_c = vals_c.shape[1]
+    all_c, _ = bound(nbytes(vals_c, flags_c, gc), vals_c.numel())
+    say(f"    K1 coloured {tuple(vals_c.shape)} cap {cap}: bitwise equal "
+        f"({int((wc[:, 6] > 0).sum())} segments, rgb sums "
+        f"{float(wc[:, 7:10].sum()):.6g}), two launches bitwise equal; 1 "
+        f"launch of {kc[0]} tiles + {kc[1]} zero-only blocks x "
+        f"{k1_launch(ch_c)}; {rows_c} rows have an id below the capacity; "
+        f"bound with every row read {all_c:.4f} ms")
+    report("segment_sum_from_flags (10 channels)",
+           "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
+           "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
+           (gc - wc).abs().max().item(), tc,
+           nbytes(flags_c, gc) + rows_c * ch_c * vals_c.element_size(),
+           rows_c * ch_c)
+    del vals_c, flags_c, gc, gc_again, wc
 
     # K2 at the ring-ICP shape and at the per-camera 1 cm pass
     check(lib.pcs_nn_query_tile() == NN_QUERY_TILE,
@@ -564,10 +622,62 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/8 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/9 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
+
+    # the coloured step (bench.py's coloured cell): 'auto' against 'torch'
+    # bit for bit, 10 channels through K1 on the global pass
+    def run_colour(impl: str):
+        cfg = flagship_cfg(StitchConfig, kernel_impl=impl, with_color=True)
+        pipe = StitchingPipeline(cfg, intr, ext_np, device=dev,
+                                 update_mode="track")
+        kb.reset_launches()
+        for _ in range(FRAMES):
+            out = pipe(depths, colors)
+        torch.cuda.synchronize()
+        return out, dict(kb.LAUNCHES)
+
+    ca, la = run_colour("auto")
+    ct, lt = run_colour("torch")
+    for name in ("xyz", "mask", "rgb"):
+        check(torch.equal(getattr(ca.cloud, name), getattr(ct.cloud, name)),
+              f"coloured step: cloud {name} differs, 'auto' vs 'torch'")
+    check(torch.equal(ca.extrinsics, ct.extrinsics),
+          "coloured step: extrinsics differ, 'auto' vs 'torch'")
+    check(not lt, f"coloured 'torch' run launched kernels {lt}")
+    per_frame = {"nn_batched_prepared": 5, "segment_sum_from_flags": 1,
+                 "segment_sum_sorted": 1}
+    for name, k in per_frame.items():
+        check(la.get(name, 0) == k * FRAMES,
+              f"coloured: {name} launched {la.get(name, 0)} times in "
+              f"{FRAMES} frames, want {k * FRAMES}")
+    kernels["segment_sum_from_flags (10 channels)"]["launches"] = \
+        la["segment_sum_from_flags"]
+    n_c = int(ca.metrics.points_out)
+    rgb_c = ca.cloud.rgb[ca.cloud.mask]
+    check(n_c > 0 and bool((rgb_c > 0).any()), "coloured step: no colour")
+    del ct
+    # mapped colour with the depth intrinsics and identity depth->colour
+    # extrinsics must equal depth-aligned colour
+    acfg = flagship_cfg(StitchConfig, with_color=True)
+    mcfg = flagship_cfg(StitchConfig, with_color=True, color_height=H,
+                        color_width=W)
+    aligned = StitchingPipeline(acfg, intr, ext_np, device=dev)(depths,
+                                                                colors)
+    mapped = StitchingPipeline(mcfg, intr, ext_np, device=dev,
+                               color_intr=intr)(depths, colors)
+    for name in ("xyz", "mask", "rgb"):
+        check(torch.equal(getattr(aligned.cloud, name),
+                          getattr(mapped.cloud, name)),
+              f"mapped colour differs from aligned colour in {name}")
+    say(f"[4/9 slice] coloured: {FRAMES} frames track mode, points_out "
+        f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
+        f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
+        f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
+        f"== aligned colour bit for bit")
+    del ca, aligned, mapped, rgb_c, colors
 
     # --- phase 5: independent check against the numpy oracle ------------
     # a grid of 2^21 slots holds every occupied 6 cm voxel of the scene, so
@@ -588,7 +698,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/8 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/9 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -622,7 +732,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/8 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/9 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -631,6 +741,7 @@ def main() -> int:
 
     registration_phase(dev, kb, report, kernels, card)
     tsdf_phase(dev, kb, report, kernels, card)
+    stream_phase(dev, kb, card)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(card)
@@ -738,7 +849,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/8 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/9 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1132,7 +1243,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/8 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/9 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1324,6 +1435,194 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
         f"auto {s_auto} auto+colour {s_rgb} dense {s_dense}; peak memory "
         f"MiB {', '.join(f'{k} {v:.1f}' for k, v in peaks.items())}")
 
+
+# --- phase 9: the streaming runtime ------------------------------------------
+STREAM_FRAMES = 30       # per run
+CLI_FRAMES = 20
+
+
+def stream_rig():
+    """bench.py's loopback rig (_make_stream_rig): one synthetic_frames
+    frame per camera and cameras 10 cm apart on a line."""
+    from pointcloud_stitching_tpu_torch.runtime import synthetic_frames
+    frames = [synthetic_frames(1, H, W, seed=s) for s in range(NCAM)]
+    ext = np.tile(np.eye(4, dtype=np.float32), (NCAM, 1, 1))
+    for i in range(NCAM):
+        ext[i, :3, 3] = np.array([0.1 * i, -0.05 * i, 0.02 * i], np.float32)
+    return frames, ext
+
+
+def same_output(a, b) -> bool:
+    return (all(torch_equal(getattr(a.cloud, k), getattr(b.cloud, k))
+                for k in ("xyz", "mask", "rgb"))
+            and torch_equal(a.extrinsics, b.extrinsics)
+            and torch_equal(a.metrics.points_in, b.metrics.points_in)
+            and torch_equal(a.metrics.points_out, b.metrics.points_out))
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    if x is None or y is None:
+        return x is None and y is None
+    return bool(torch.equal(x, y))
+
+
+def stream_phase(dev, kb, card) -> None:
+    """Phase 9: 8 fake camera servers -> the pipelined client -> the
+    flagship pipeline; then the stitch CLI and the camera test as
+    subprocesses."""
+    import tempfile
+
+    import torch
+    from pointcloud_stitching_tpu_torch import (Intrinsics, StitchConfig,
+                                                StitchingPipeline, native)
+    from pointcloud_stitching_tpu_torch.io import load_ply
+    from pointcloud_stitching_tpu_torch.models.tsdf import load_volume
+    from pointcloud_stitching_tpu_torch.runtime import (
+        Codec, FakeCameraServer, MulticameraClient)
+
+    t_phase = time.perf_counter()
+    check(native.available(), "the port's native codec library did not "
+                              "build: no snappy stream")
+    frames, ext = stream_rig()
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i0.stack([i0] * (NCAM - 1))
+    servers = []
+    try:
+        for color in (False, True):
+            for srv in servers:
+                srv.stop()
+            servers = [FakeCameraServer(f, codec=Codec.SNAPPY,
+                                        color=color).start() for f in frames]
+            pipe = StitchingPipeline(flagship_cfg(StitchConfig,
+                                                  with_color=color),
+                                     intr, ext, device=dev)
+            d = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+            c = (torch.from_numpy(np.stack([s.colors[0] for s in servers]))
+                 .to(dev) if color else None)
+            want = pipe(d, c)
+            direct_ms = median_ms(lambda: pipe(d, c), 10)
+            s_direct = count_syncs(lambda: pipe(d, c))
+            client = MulticameraClient([("127.0.0.1", s.port)
+                                        for s in servers], pipe).start()
+            try:
+                check(client.wait_for_first_frames(timeout=30),
+                      f"no frames from the loopback servers: "
+                      f"{client.camera_errors()}")
+                client.run(num_frames=3)
+                s_stream = count_syncs(lambda: client.run(num_frames=10))
+                check(s_stream <= 10 * (s_direct + 1),
+                      f"{s_stream} host syncs in 10 streamed frames, the "
+                      f"direct call makes {s_direct}")
+                pinned = [t.is_pinned() for st in client._stage_ring
+                          for t in st.host.values() if t is not None]
+                check(pinned and all(pinned), "staging buffers not pinned")
+                for sync_every in (1, 4):
+                    client.metrics.reset()
+                    client.stages.reset()
+                    outs = []
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    kb.reset_launches()
+                    m = client.run(num_frames=STREAM_FRAMES,
+                                   sync_every=sync_every,
+                                   on_frame=lambda i, o: outs.append(o))
+                    torch.cuda.synchronize()
+                    launches = dict(kb.LAUNCHES)
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                    check(len(outs) == STREAM_FRAMES == m.total_frames,
+                          f"{len(outs)} frames streamed")
+                    bad = [i for i, o in enumerate(outs)
+                           if not same_output(o, want)]
+                    check(not bad, f"streamed frames {bad} differ from the "
+                                   "direct call")
+                    want_l = {"nn_batched_prepared": 5 * STREAM_FRAMES,
+                              "segment_sum_from_flags": STREAM_FRAMES,
+                              "segment_sum_sorted": STREAM_FRAMES}
+                    check(launches == want_l, f"stream launches {launches}")
+                    st = client.stages.summary()
+                    say(f"[9/9 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                        f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
+                        f"sync_every={sync_every}: {STREAM_FRAMES} frames "
+                        f"bitwise equal to the direct call "
+                        f"(points_out {int(want.metrics.points_out)}); fps "
+                        f"{m.fps:.2f}, latency p50 {m.latency_ms(50):.2f} "
+                        f"p99 {m.latency_ms(99):.2f} ms, points/s "
+                        f"{m.points_per_sec:.4g}; stage means ms {st}; "
+                        f"launches {launches}; peak memory {peak:.1f} MiB")
+                # the snapshot alone, with the ingest threads idle (no
+                # pull is woken): the copy's own cost, without the GIL
+                # contention of a running stream
+                t = time.perf_counter()
+                for _ in range(10):
+                    client._snapshot(wake=False)
+                snap_ms = (time.perf_counter() - t) * 100
+                say(f"    direct StitchingPipeline on the same frames "
+                    f"{direct_ms:.3f} ms/frame (median of 10 synced calls); "
+                    f"host syncs per frame: direct {s_direct}, streamed "
+                    f"{s_stream / 10:.2f}; staging ring "
+                    f"{len(client._stage_ring)} pinned slots; snapshot "
+                    f"alone (ingest idle) {snap_ms:.3f} ms")
+            finally:
+                client.stop()
+            del want, outs, d, c, pipe
+
+        # the stitch CLI (colour, TSDF keyframes) and the camera test as
+        # subprocesses on the default device, against these servers
+        cam_srv = FakeCameraServer(frames[0], codec=Codec.SNAPPY).start()
+        servers.append(cam_srv)
+        env = {k: v for k, v in os.environ.items() if k != "PCS_PLATFORM"}
+        with tempfile.TemporaryDirectory() as tmp:
+            npz = os.path.join(tmp, "scene_tsdf.npz")
+            cli = [sys.executable, "-m",
+                   "pointcloud_stitching_tpu_torch.runtime.stitch_cli"]
+            for srv in servers[:NCAM]:
+                cli += ["--camera", f"127.0.0.1:{srv.port}"]
+            cli += ["--height", str(H), "--width", str(W),
+                    "--frames", str(CLI_FRAMES), "--color", "--save-dir",
+                    tmp, "--save-every", "10", "--tsdf-leaf", "0.02",
+                    "--tsdf-every", "5", "--tsdf-out", npz,
+                    "--print-every", "10", "--timing"]
+            cam = [sys.executable, "-m",
+                   "pointcloud_stitching_tpu_torch.runtime.camera_test",
+                   "--port", str(cam_srv.port), "--frames", "30",
+                   "--deproject"]
+            t = time.perf_counter()
+            procs = [subprocess.Popen(a, cwd=REPO, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE)
+                     for a in (cli, cam)]
+            try:
+                res = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            t_sub = time.perf_counter() - t
+            for p, (out, err), tag in zip(procs, res, ("stitch_cli",
+                                                       "camera_test")):
+                check(p.returncode == 0, f"{tag} failed:\n{err[-3000:]}")
+            plys = sorted(f for f in os.listdir(tmp) if f.endswith(".ply"))
+            check(plys == ["cloud_000000.ply", "cloud_000010.ply"],
+                  f"stitch_cli wrote {plys}")
+            xyz, rgb = load_ply(os.path.join(tmp, plys[-1]))
+            check(len(xyz) > 0 and rgb is not None, "empty PLY from the CLI")
+            vol = load_volume(npz, device=dev)
+            occ = int((vol.weight > 0).sum())
+            check(occ > 0 and vol.rgb is not None, "TSDF without weights")
+            cli_out = res[0][0].strip().splitlines()
+            say(f"    stitch_cli ({CLI_FRAMES} frames, --color, TSDF every "
+                f"5 at 2 cm) and camera_test --deproject together "
+                f"{t_sub:.1f} s as subprocesses: {len(xyz)} points in "
+                f"{plys[-1]}, {occ} observed voxels in the checkpoint; "
+                f"cli: {cli_out[-2]} | {cli_out[-1]}; camera_test: "
+                f"{res[1][0].strip().splitlines()[-1]}")
+    finally:
+        for srv in servers:
+            srv.stop()
+    say(f"    phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,9 +1,9 @@
 """LZF codec in pure Python, for PCD ``DATA binary_compressed``.
 
 Copy of the pure-Python codec in ``pointcloud_stitching_tpu/native/lzf.py``
-(PCL's pcl::lzfCompress/lzfDecompress stream format). The reference's
-native ctypes codec is not ported; this one is byte-serial and slow on
-large clouds, but exact.
+(PCL's pcl::lzfCompress/lzfDecompress stream format). Byte-serial and
+slow on large clouds, but exact: ``native/lzf.py`` (the ctypes codec) falls
+back to it where no C++ toolchain exists.
 """
 from __future__ import annotations
 

@@ -8,8 +8,8 @@ open3d, so the format is implemented from the public PLY spec.
 Only the properties the reference uses are supported: float x/y/z and
 uchar red/green/blue.
 
-Copy of ``pointcloud_stitching_tpu/io/plyio.py`` (numpy only) without
-``save_cloud``, which needs the port of ``decode_normals``.
+Copy of ``pointcloud_stitching_tpu/io/plyio.py`` (numpy only);
+``save_cloud`` takes the port's tensor clouds and moves them to the host.
 """
 from __future__ import annotations
 
@@ -162,3 +162,22 @@ def load_ply(path: str):
                        axis=-1).astype(np.uint8)
     return xyz, rgb
 
+
+def save_cloud(path: str, pc, binary: bool = True,
+               decode_normals: bool = False) -> None:
+    """Save a (device) PointCloud's valid points to PLY.
+
+    decode_normals: the cloud's rgb channel carries encoded normals (a
+    cfg.with_normals pipeline output) — write them as nx/ny/nz float
+    properties (pcl::PointNormal layout) instead of colors.
+    """
+    xyz = pc.xyz.detach().cpu().numpy()
+    mask = pc.mask.detach().cpu().numpy()
+    if decode_normals:
+        from ..ops.normals import decode_normals as _dec
+        nrm, _ = _dec(pc)
+        save_ply(path, xyz[mask], None, binary=binary,
+                 normals=nrm.detach().cpu().numpy()[mask])
+        return
+    rgb = None if pc.rgb is None else pc.rgb.detach().cpu().numpy()[mask]
+    save_ply(path, xyz[mask], rgb, binary=binary)

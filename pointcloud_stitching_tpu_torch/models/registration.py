@@ -60,8 +60,11 @@ def register_pair(src: PointCloud, dst: PointCloud,
                   max_corr_dist: float = 0.25,
                   trim_fraction: float = 0.0,
                   prune: bool = False,
-                  kernel_impl: str = "auto") -> RegistrationResult:
-    """Full calibration solve: optional picked-pair init + ICP refinement."""
+                  kernel_impl: str = "auto", query_tile: int = 1024,
+                  ref_tile: int = 4096) -> RegistrationResult:
+    """Full calibration solve: optional picked-pair init + ICP refinement.
+    ``query_tile``/``ref_tile`` are taken as the JAX package does and
+    ignored (see ops.icp)."""
     if src_idx is not None:
         init_T = register_from_correspondences(src, dst, src_idx, dst_idx)
     else:
@@ -141,6 +144,7 @@ def register_global(src: PointCloud, dst: PointCloud,
                     refine: bool = True,
                     fpfh_starts: int = 0,
                     kernel_impl: str = "auto",
+                    query_tile: int = 512, ref_tile: int = 1024,
                     **refine_kw) -> RegistrationResult:
     """Automatic pairwise registration — no picked correspondences.
 
@@ -156,7 +160,9 @@ def register_global(src: PointCloud, dst: PointCloud,
     tie-break — seeds a full-resolution ``icp_converge`` (``refine_kw``;
     ``max_corr_dist`` defaults to twice the fitted leaf).
 
-    With ``num_starts <= 25`` no random rotation is used. Like any
+    ``query_tile``/``ref_tile`` are taken as the JAX package does and
+    ignored (see ops.icp). With ``num_starts <= 25`` no random rotation is
+    used. Like any
     geometry-only method it can lock onto a symmetry of the scene: check
     ``icp.mean_error`` / ``num_inliers``.
     """

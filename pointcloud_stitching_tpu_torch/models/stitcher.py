@@ -8,8 +8,10 @@ a batch dimension, and one step does
   ring-correction composition → SE(3) into world → fuse → optional crop →
   one global voxel pass (K1)
 
-on the device, eagerly (the JAX package jits the whole step). Colour input
-is not ported yet: ``stitch_step`` raises on ``colors``.
+on the device, eagerly (the JAX package jits the whole step). Colour rides
+the cloud's rgb channel: depth-aligned (``deproject_with_color``) or
+texture-mapped from a colour stream with its own calibration
+(``map_color``); the coloured global pass sums 10 channels through K1.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from ..ops.filters import crop_box
 from ..ops.fuse import fuse_batched
 from ..ops.icp import icp_batched, icp_point_to_plane_batched
 from ..ops.normals import grid_normals
-from ..ops.se3 import mm, se3_apply, se3_blend, se3_power
-from ..ops.deproject import deproject
+from ..ops.se3 import mm, se3_apply, se3_blend, se3_identity, se3_power
+from ..ops.deproject import deproject, deproject_with_color, map_color
 from ..ops.voxel import decimate_depth, voxel_downsample
 from ..utils.config import StitchConfig
 from ..utils.platform import set_full_fp32_matmul
@@ -42,6 +44,12 @@ class StitchOutput(NamedTuple):
     cloud: PointCloud              # fused, downsampled world-frame cloud
     extrinsics: torch.Tensor       # [ncam, 4, 4] refined extrinsics
     metrics: StitchMetrics
+    # the frame's raw device inputs, attached by the streaming client (None
+    # from direct pipeline calls): depth-domain consumers (TSDF integrate,
+    # tracking) run on the exact frame the stitch saw
+    depth: Optional[torch.Tensor] = None      # [ncam, H, W] raw units
+    color: Optional[torch.Tensor] = None      # [ncam, H, W, 3] rgb
+    cam_mask: Optional[torch.Tensor] = None   # [ncam] bool
 
 
 def autofit_out_leaf(points_out: torch.Tensor, leaf, *, capacity: int,
@@ -183,25 +191,35 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
 
 
 def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
-                depths: torch.Tensor, colors=None,
+                depths: torch.Tensor, colors: Optional[torch.Tensor] = None,
                 cam_mask: Optional[torch.Tensor] = None,
+                color_intr: Optional[Intrinsics] = None,
+                color_ext: Optional[torch.Tensor] = None,
                 out_leaf=None) -> StitchOutput:
-    """One full stitching step; a pure function of its inputs.
+    """One full stitching step; a pure function of its inputs. The
+    positional order is the JAX package's.
 
     Args:
       cfg: configuration.
       intr: camera-batched Intrinsics on the depths' device.
       extrinsics: [ncam, 4, 4] camera→world transforms.
       depths: [ncam, H, W] uint16 raw depth.
-      colors: not supported yet (raises NotImplementedError).
+      colors: optional [ncam, H, W, 3] uint8 depth-aligned colour — or,
+        with color_intr, [ncam, Hc, Wc, 3] colour at its own resolution.
       cam_mask: optional [ncam] bool — False drops a camera.
+      color_intr/color_ext: optional colour-stream Intrinsics and [ncam, 4,
+        4] depth→colour extrinsics (identity when None): colour attaches by
+        projecting each point into the colour camera (``map_color``).
       out_leaf: optional 0-d tensor overriding cfg.out_voxel_leaf.
     """
-    if colors is not None:
-        raise NotImplementedError("colour input is not ported yet")
     ncam = cfg.num_cameras
     if depths.shape[0] != ncam:
         raise ValueError(f"depths has {depths.shape[0]} cameras, cfg {ncam}")
+    if colors is not None and cfg.with_normals:
+        # both ride the rgb channel: the normals would overwrite the colour
+        raise ValueError("stitch_step got a colors array but "
+                         "cfg.with_normals is set — normals and color "
+                         "both ride the rgb channel; drop one")
 
     depths = decimate_depth(depths, cfg.decimation)
     if cfg.decimation > 1:
@@ -211,8 +229,21 @@ def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
                             ppx=intr.ppx / s0, ppy=intr.ppy / s0,
                             width=cfg.width // cfg.decimation,
                             height=cfg.height // cfg.decimation)
-    raw = deproject(depths, intr, depth_scale=cfg.depth_scale,
-                    z_min=cfg.z_min, z_max=cfg.z_max)
+    if colors is not None and color_intr is None:
+        if cfg.decimation > 1:
+            colors = colors[..., ::cfg.decimation, ::cfg.decimation, :]
+        raw = deproject_with_color(depths, colors, intr,
+                                   depth_scale=cfg.depth_scale,
+                                   z_min=cfg.z_min, z_max=cfg.z_max)
+    else:
+        raw = deproject(depths, intr, depth_scale=cfg.depth_scale,
+                        z_min=cfg.z_min, z_max=cfg.z_max)
+    if colors is not None and color_intr is not None:
+        # non-aligned colour: points project into the colour camera, so
+        # depth decimation needs no colour-side counterpart
+        if color_ext is None:
+            color_ext = se3_identity(device=depths.device)
+        raw = map_color(raw, colors, color_intr, color_ext)
     if cam_mask is not None:
         raw = raw.replace(mask=raw.mask & cam_mask[:, None])
 
@@ -273,13 +304,24 @@ class StitchingPipeline:
 
     def __init__(self, cfg: StitchConfig, intr: Intrinsics, extrinsics, *,
                  device, update_mode: str = "anchored",
-                 ema_alpha: float = 0.05):
+                 ema_alpha: float = 0.05,
+                 color_intr: Optional[Intrinsics] = None,
+                 color_ext=None):
+        """color_intr/color_ext: per-camera colour-stream calibration for
+        non-aligned colour (see stitch_step); required when
+        cfg.color_height is set."""
         if update_mode not in ("anchored", "track", "ema"):
             raise ValueError(update_mode)
+        if cfg.color_height is not None and color_intr is None:
+            raise ValueError("cfg.color_height set but no color_intr given")
         set_full_fp32_matmul()
         self.cfg = cfg
         self.device = torch.device(device)
         self.intr = intr.to(self.device)
+        self.color_intr = (None if color_intr is None
+                           else color_intr.to(self.device))
+        self.color_ext = (None if color_ext is None else torch.as_tensor(
+            color_ext, dtype=torch.float32).to(self.device))
         self.extrinsics = torch.as_tensor(extrinsics, dtype=torch.float32
                                           ).to(self.device)
         self.update_mode = update_mode
@@ -305,10 +347,13 @@ class StitchingPipeline:
 
     def __call__(self, depths, colors=None, cam_mask=None) -> StitchOutput:
         depths = torch.as_tensor(depths).to(self.device)
+        if colors is not None:
+            colors = torch.as_tensor(colors).to(self.device)
         if cam_mask is not None:
             cam_mask = torch.as_tensor(cam_mask).to(self.device)
         out = stitch_step(self.cfg, self.intr, self.extrinsics, depths,
-                          colors, cam_mask, self.out_leaf)
+                          colors, cam_mask, self.color_intr, self.color_ext,
+                          self.out_leaf)
         self._update(out)
         return out
 

@@ -10,18 +10,27 @@ Port of ``pointcloud_stitching_tpu/ops/deproject.py``'s ``deproject``
 A pure elementwise map over the [H, W] grid, batched over cameras. Pixels
 with zero (or out-of-range) depth become masked, zeroed points. The
 division in ``(u - ppx) / fx`` is kept as the JAX code has it (a reciprocal
-multiply would differ in the last ulp). Colour mapping is not ported yet.
+multiply would differ in the last ulp).
 
 ``project`` forms the pinhole ``x * fx + ppx`` with ``torch.addcmul``: one
 fused multiply-add, as XLA contracts it, so projected pixel coordinates are
 the JAX package's bit for bit on the CPU (a separate multiply and add
 differs in the last bit, which can move ``round(u)`` to the next pixel).
+
+Colour attaches in one of two ways: ``deproject_with_color`` for
+depth-aligned colour (a per-pixel lookup) and ``map_color`` /
+``deproject_with_color_mapped`` for a colour stream with its own
+intrinsics and a depth→colour extrinsic (librealsense's ``map_to``: project
+each point into the colour camera, round to the nearest pixel with
+``torch.round``, which rounds half to even as ``jnp.round`` does, and
+gather).
 """
 from __future__ import annotations
 
 import torch
 
 from ..utils.types import DistortionModel, Intrinsics, PointCloud
+from .se3 import se3_apply
 
 
 def _undistort_brown_conrady_iterative(x, y, coeffs, iters: int = 10):
@@ -149,3 +158,61 @@ def project(xyz: torch.Tensor, intr: Intrinsics):
     u, v, in_front = project_planes(xyz[..., 0], xyz[..., 1], xyz[..., 2],
                                     per_point)
     return torch.stack([u, v], dim=-1), in_front
+
+
+def map_color(pc: PointCloud, color: torch.Tensor, color_intr: Intrinsics,
+              depth_to_color: torch.Tensor) -> PointCloud:
+    """Attach colour by texture-coordinate mapping with separate colour
+    calibration (``rs2::pointcloud::map_to``).
+
+    Per point: transform into the colour camera frame, project with the
+    colour intrinsics, sample the colour image at the nearest pixel. Points
+    that land outside the colour frame keep their geometry but get zero
+    colour.
+
+    Args:
+      pc: deprojected cloud in the DEPTH camera frame ([..., N, 3]).
+      color: [..., Hc, Wc, 3] uint8 colour image (its own resolution).
+      color_intr: the colour stream's Intrinsics (batched like pc).
+      depth_to_color: [..., 4, 4] depth→colour extrinsic transform.
+    """
+    hc, wc = color.shape[-3], color.shape[-2]
+    xyz_c = se3_apply(depth_to_color.to(torch.float32), pc.xyz)
+    uv, in_front = project(xyz_c, color_intr)
+    ui = torch.round(uv[..., 0]).to(torch.int32)
+    vi = torch.round(uv[..., 1]).to(torch.int32)
+    in_fov = in_front & (ui >= 0) & (ui < wc) & (vi >= 0) & (vi < hc)
+    ui = torch.clamp(ui, 0, wc - 1)
+    vi = torch.clamp(vi, 0, hc - 1)
+    flat = color.to(torch.float32).reshape(*color.shape[:-3], hc * wc, 3)
+    idx = (vi * wc + ui).long()
+    rgb = flat.gather(-2, idx[..., None].expand(*idx.shape, 3))
+    rgb = torch.where((pc.mask & in_fov)[..., None], rgb, 0.0)
+    return pc.replace(rgb=rgb)
+
+
+def deproject_with_color_mapped(depth: torch.Tensor, color: torch.Tensor,
+                                intr: Intrinsics, color_intr: Intrinsics,
+                                depth_to_color: torch.Tensor,
+                                depth_scale: float = 0.001,
+                                z_min: float = 0.0,
+                                z_max: float = float("inf")) -> PointCloud:
+    """Deproject depth and texture-map colour from a non-aligned colour
+    stream (see ``map_color``)."""
+    pc = deproject(depth, intr, depth_scale, z_min, z_max)
+    return map_color(pc, color, color_intr, depth_to_color)
+
+
+def deproject_with_color(depth: torch.Tensor, color: torch.Tensor,
+                         intr: Intrinsics, depth_scale: float = 0.001,
+                         z_min: float = 0.0,
+                         z_max: float = float("inf")) -> PointCloud:
+    """Deproject depth and attach per-pixel RGB (depth-aligned colour).
+
+    color: [..., H, W, 3] uint8. Masked points get zero colour.
+    """
+    pc = deproject(depth, intr, depth_scale, z_min, z_max)
+    batch = depth.shape[:-2]
+    rgb = color.to(torch.float32).reshape(*batch, -1, 3)
+    rgb = torch.where(pc.mask[..., None], rgb, 0.0)
+    return pc.replace(rgb=rgb)

@@ -1,6 +1,6 @@
 """Multi-cloud fusion (concatenation) on padded buffers.
 
-Port of ``fuse`` and ``fuse_batched`` from
+Port of ``fuse``, ``fuse_batched`` and ``compact`` from
 ``pointcloud_stitching_tpu/ops/fuse.py``: with fixed-capacity clouds,
 fusion is a reshape or a concatenation and the masks do the bookkeeping.
 """
@@ -29,3 +29,16 @@ def fuse_batched(pc: PointCloud) -> PointCloud:
     mask = pc.mask.reshape(*lead, ncam * n)
     rgb = pc.rgb.reshape(*lead, ncam * n, 3) if pc.rgb is not None else None
     return PointCloud(xyz=xyz, mask=mask, rgb=rgb)
+
+
+def compact(pc: PointCloud) -> PointCloud:
+    """Sort valid points to the front (stable). Shape-preserving.
+
+    Useful before slicing a fused cloud down to a smaller capacity, and for
+    host-side export where the valid prefix is what gets written."""
+    key = (~pc.mask).to(torch.int32)
+    _, perm = torch.sort(key, dim=-1, stable=True)
+    idx3 = perm[..., None].expand(*perm.shape, 3)
+    rgb = None if pc.rgb is None else pc.rgb.gather(-2, idx3)
+    return PointCloud(xyz=pc.xyz.gather(-2, idx3),
+                      mask=pc.mask.gather(-1, perm), rgb=rgb)

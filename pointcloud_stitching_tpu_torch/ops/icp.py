@@ -17,6 +17,11 @@ termination) align one pair, as the offline registration tool does. With
 voxel-sorted clouds. Unlike the JAX package, which ignores ``prune`` off
 the TPU, the port honours it on every device; the plain versions run it on
 the CPU.
+
+Every entry point takes the reference's ``query_tile``/``ref_tile`` and
+ignores them: they size the JAX package's XLA sweep, and the port's NN
+kernels have no such tiles. Callers written for the reference run as they
+are.
 """
 from __future__ import annotations
 
@@ -77,7 +82,8 @@ def _init(src: PointCloud, init_T, max_corr_dist):
 def icp_batched(src: PointCloud, dst: PointCloud,
                 init_T: torch.Tensor | None = None, iterations: int = 5,
                 max_corr_dist=0.1, nn_impl: str = "auto",
-                trim_fraction: float = 0.0) -> ICPResult:
+                trim_fraction: float = 0.0, query_tile: int = 1024,
+                ref_tile: int = 4096) -> ICPResult:
     """Point-to-point ICP over B independent cloud pairs at once."""
     b, T, max_d2 = _init(src, init_T, max_corr_dist)
     nn = _make_nn_batched(dst, nn_impl)
@@ -107,7 +113,9 @@ def icp_point_to_plane_batched(src: PointCloud, dst: PointCloud,
                                init_T: torch.Tensor | None = None,
                                iterations: int = 5, max_corr_dist=0.1,
                                nn_impl: str = "auto",
-                               trim_fraction: float = 0.0) -> ICPResult:
+                               trim_fraction: float = 0.0,
+                               query_tile: int = 1024,
+                               ref_tile: int = 4096) -> ICPResult:
     """Point-to-plane ICP over B cloud pairs (Chen & Medioni).
 
     Minimises sum w ((R p + t - q) . n_q)^2 per iteration through the
@@ -185,7 +193,8 @@ def _result(T, err, n_in, iterations: int) -> ICPResult:
 def icp(src: PointCloud, dst: PointCloud,
         init_T: torch.Tensor | None = None, iterations: int = 5,
         max_corr_dist=0.1, nn_impl: str = "auto", trim_fraction: float = 0.0,
-        prune: bool = False) -> ICPResult:
+        prune: bool = False, query_tile: int = 1024,
+        ref_tile: int = 4096) -> ICPResult:
     """Fixed-iteration point-to-point ICP of one pair (constant cost).
 
     src/dst: PointClouds with xyz [N, 3] / [M, 3]. prune=True uses the
@@ -206,7 +215,8 @@ def icp_converge(src: PointCloud, dst: PointCloud,
                  transformation_epsilon: float = 1e-8,
                  max_corr_dist=0.25, nn_impl: str = "auto",
                  trim_fraction: float = 0.0,
-                 prune: bool = False) -> ICPResult:
+                 prune: bool = False, query_tile: int = 1024,
+                 ref_tile: int = 4096) -> ICPResult:
     """ICP with PCL-style termination: stop when the incremental
     transform's squared Frobenius distance from identity drops to
     ``transformation_epsilon`` or after ``max_iterations``.

@@ -1,9 +1,11 @@
 """Surface normals from organized depth grids.
 
-Port of ``pointcloud_stitching_tpu/ops/normals.py::grid_normals``: the cross
-product of the vertical and horizontal forward differences, in the same
-``cross(dv, du)`` order and with the same edge mask (the roll wraps at the
-last row and column, so those pixels have no valid normal).
+Port of ``pointcloud_stitching_tpu/ops/normals.py``: ``grid_normals`` is the
+cross product of the vertical and horizontal forward differences, in the
+same ``cross(dv, du)`` order and with the same edge mask (the roll wraps at
+the last row and column, so those pixels have no valid normal);
+``decode_normals`` reads the 3x8-bit normals a ``with_normals`` pipeline
+writes into the cloud's rgb channel.
 """
 from __future__ import annotations
 
@@ -44,3 +46,23 @@ def grid_normals(xyz_grid: torch.Tensor, mask_grid: torch.Tensor,
         n = torch.where(flip, -n, n)
     n = torch.where(valid[..., None], n, 0.0)
     return n, valid
+
+
+def decode_normals(cloud, min_norm: float = 0.3):
+    """Unit world normals from a ``with_normals`` pipeline output.
+
+    The stitcher encodes normals as q = (n + 1) * 127.5 in the rgb channel
+    and the output voxel pass averages them. Decoding inverts the map and
+    renormalises; a short average (|n| < min_norm: the voxel's members
+    disagreed or carried no normal) decodes to zero with valid=False.
+
+    Returns (normals [..., N, 3], valid [..., N]).
+    """
+    if cloud.rgb is None:
+        raise ValueError("cloud has no encoded normals (rgb is None); "
+                         "run the pipeline with cfg.with_normals=True")
+    n = cloud.rgb * (1.0 / 127.5) - 1.0
+    norm = torch.linalg.norm(n, dim=-1, keepdim=True)
+    ok = cloud.mask & (norm[..., 0] >= min_norm)
+    n = torch.where(ok[..., None], n / torch.clamp(norm, min=1e-12), 0.0)
+    return n, ok

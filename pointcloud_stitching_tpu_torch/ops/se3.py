@@ -56,6 +56,10 @@ def se3_from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, _bottom_row(R, R.shape[:-2])], dim=-2)
 
 
+def se3_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     """Rodrigues: rotation vector [..., 3] -> rotation matrix [..., 3, 3],
     with the same series guard at theta^2 < 1e-12 as the JAX package."""

@@ -81,7 +81,7 @@ def main(argv=None):
     from pointcloud_stitching_tpu_torch.ops import voxel_downsample
     from pointcloud_stitching_tpu_torch.utils.platform import (
         platform_device, set_full_fp32_matmul)
-    from pointcloud_stitching_tpu_torch.utils.types import PointCloud
+    from pointcloud_stitching_tpu_torch.utils.types import PointCloud, round_up
 
     dev = platform_device()
     set_full_fp32_matmul()
@@ -89,7 +89,7 @@ def main(argv=None):
     def load(path):
         xyz, _ = (load_pcd(path) if path.endswith(".pcd")
                   else load_ply(path))
-        pc = PointCloud.from_points(xyz, capacity=-(-len(xyz) // 1024) * 1024,
+        pc = PointCloud.from_points(xyz, capacity=round_up(len(xyz), 1024),
                                     device=dev)
         if args.voxel:
             pc = voxel_downsample(pc, args.voxel, capacity=pc.capacity)

@@ -25,7 +25,8 @@ class StitchConfig:
     z_min: float = 0.1
     z_max: float = 10.0
     decimation: int = 1          # grid-stride depth decimation
-    # colour (depth-aligned or texture-mapped) is not ported yet
+    # stitch coloured clouds (depth-aligned RGB, or texture-mapped from a
+    # colour stream of its own resolution when color_height/width are set)
     with_color: bool = False
     # attach per-point surface normals to the fused output, quantised to
     # 3x8-bit in the cloud's rgb channel (decode: (rgb / 127.5) - 1)
@@ -78,9 +79,6 @@ class StitchConfig:
             raise ValueError(f"unknown icp_variant {self.icp_variant!r}")
         if self.kernel_impl not in KERNEL_IMPLS:
             raise ValueError(f"unknown kernel_impl {self.kernel_impl!r}")
-        if self.with_color:
-            raise NotImplementedError(
-                "colour is not ported yet (deproject_with_color, map_color)")
         if not (0.0 <= self.icp_trim_fraction < 1.0):
             raise ValueError("icp_trim_fraction must be in [0, 1)")
         for name in ("cam_capacity", "out_capacity", "icp_capacity"):

@@ -152,3 +152,7 @@ class PointCloud:
         if rgb is not None:
             rgb = torch.cat([_f32(rgb, dev), zeros], dim=-2)
         return cls(xyz=xyz, mask=mask, rgb=rgb)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m

@@ -683,3 +683,60 @@ def test_integrate_auto_matches_dense_on_the_card(rng, cuda_device, with_rgb):
     assert out[("auto", "auto")][1] == {"patch_gather": 2 * 3 * planes}
     assert not out[("auto", "torch")][1]
     assert not out[("dense", "auto")][1]
+
+
+@pytest.mark.parametrize("color", [False, True])
+def test_stream_client_on_the_card(cuda_device, color):
+    """The pipelined client on a CUDA pipeline: snapshots in pinned ring
+    slots, copied on a side stream; with sync_every=3 the ring wraps while
+    copies may be in flight, and every output equals a direct call bit for
+    bit, with K1, K2 and K3 launched per frame."""
+    from pointcloud_stitching_tpu_torch.runtime import (
+        Codec, FakeCameraServer, MulticameraClient, synthetic_frames)
+    ncam, h, w = 3, 120, 212
+    servers = [FakeCameraServer(synthetic_frames(1, h, w, seed=s),
+                                codec=Codec.SNAPPY, color=color).start()
+               for s in range(ncam)]
+    client = None
+    try:
+        cfg = P.StitchConfig(num_cameras=ncam, height=h, width=w,
+                             out_voxel_leaf=0.02, out_capacity=65536,
+                             icp_voxel_leaf=0.05, icp_capacity=1024,
+                             with_color=color)
+        i0 = P.Intrinsics.create(fx=106.0, fy=106.0, ppx=w / 2, ppy=h / 2,
+                                 width=w, height=h)
+        ext = np.stack([random_se3(seed=10 + i, max_angle=0.05,
+                                   max_trans=0.1) for i in range(ncam)])
+        pipe = P.StitchingPipeline(cfg, i0.stack([i0] * (ncam - 1)), ext,
+                                   device=cuda_device)
+        d = torch.from_numpy(np.stack([s.frames[0] for s in servers]))
+        c = (torch.from_numpy(np.stack([s.colors[0] for s in servers]))
+             if color else None)
+        want = pipe(d.to(cuda_device),
+                    None if c is None else c.to(cuda_device))
+        client = MulticameraClient([("127.0.0.1", s.port) for s in servers],
+                                   pipe).start()
+        assert client.wait_for_first_frames(timeout=20)
+        outs = []
+        kb.reset_launches()
+        client.run(num_frames=10, sync_every=3,
+                   on_frame=lambda i, o: outs.append(o))
+        torch.cuda.synchronize()
+        assert dict(kb.LAUNCHES) == {"nn_batched_prepared": 50,
+                                     "segment_sum_from_flags": 10,
+                                     "segment_sum_sorted": 10}
+        assert all(t.is_pinned() for st in client._stage_ring
+                   for t in st.host.values() if t is not None)
+        assert len(outs) == 10
+        for o in outs:
+            assert o.depth.is_cuda and o.depth.dtype == torch.uint16
+            assert torch.equal(o.depth.cpu(), d)
+            for k in ("xyz", "mask", "rgb"):
+                a, b = getattr(o.cloud, k), getattr(want.cloud, k)
+                assert (a is None and b is None) or torch.equal(a, b), k
+            assert torch.equal(o.extrinsics, want.extrinsics)
+    finally:
+        if client is not None:
+            client.stop()
+        for s in servers:
+            s.stop()

@@ -370,8 +370,16 @@ def test_config_from_jax_json_maps_backends():
 def test_config_checks():
     with pytest.raises(ValueError):
         StitchConfig(kernel_impl="pallas")
-    with pytest.raises(NotImplementedError):
-        StitchConfig(with_color=True)
+    # colour is ported: allowed alone, refused with normals (both ride the
+    # rgb channel) and where the colour-stream size is half given
+    assert StitchConfig(with_color=True, color_height=45,
+                        color_width=80).with_color
+    with pytest.raises(ValueError):
+        StitchConfig(with_color=True, with_normals=True)
+    with pytest.raises(ValueError):
+        StitchConfig(with_color=True, color_height=45)
+    with pytest.raises(ValueError):
+        StitchConfig(color_height=45, color_width=80)
     with pytest.raises(ValueError):
         StitchConfig(decimation=7)
     with pytest.raises(ValueError):

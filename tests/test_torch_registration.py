@@ -74,7 +74,8 @@ def _coarse_ub(q, r, rmask, stride=8):
 @pytest.mark.parametrize("n,m,qt,rb", [(700, 1500, 128, 128),
                                        (300, 1000, 100, 256),
                                        (1, 130, 128, 64)])
-def test_block_ranges_match_jax(rng, n, m, qt, rb):
+def test_block_ranges_match_jax(n, m, qt, rb):
+    rng = np.random.default_rng(101)
     q, r, rmask, qmask = _sorted_scene(rng, n=n, m=m)
     ub = _coarse_ub(q, r, rmask)
     args = (q, qmask, r, rmask, ub)
@@ -89,7 +90,8 @@ def test_block_ranges_match_jax(rng, n, m, qt, rb):
 
 
 @pytest.mark.parametrize("ranges", ["block_ranges", "narrowed", "empty"])
-def test_ranged_plain_matches_jax(rng, ranges):
+def test_ranged_plain_matches_jax(ranges):
+    rng = np.random.default_rng(102)
     q, r, rmask, qmask = _sorted_scene(rng)
     ub = _coarse_ub(q, r, rmask)
     jlo, jhi = (np.asarray(a) for a in JNN.block_ranges(
@@ -123,7 +125,8 @@ def test_ranged_plain_matches_jax(rng, ranges):
         assert int((bi != gi).sum()) > 100
 
 
-def test_pruned_nn_matches_brute_force_and_jax(rng):
+def test_pruned_nn_matches_brute_force_and_jax():
+    rng = np.random.default_rng(103)
     q, r, rmask, qmask = _sorted_scene(rng)
     kw = dict(coarse_stride=8, query_tile=QT, ref_block=RB)
     gi, gd = PNN.nearest_neighbors_pruned(t(q), t(r), t(rmask), t(qmask),
@@ -241,10 +244,11 @@ def test_icp_matches_jax(jax_icp_direct_nn, fn, prune):
     assert got.T.shape == (4, 4) and got.iterations.dtype == torch.int32
 
 
-def test_pruned_icp_equals_unpruned_and_oracle(rng):
+def test_pruned_icp_equals_unpruned_and_oracle():
     """Pruning changes which blocks are swept, never the answer: the port's
     pruned ICP equals its brute-force ICP bit for bit, and both agree with
     the numpy oracle."""
+    rng = np.random.default_rng(104)
     src, dst, _, _, T_true = _icp_scene(rng, masked=0.0)
     ps = PointCloud.from_points(src)
     pd = PointCloud.from_points(dst)
@@ -256,7 +260,8 @@ def test_pruned_icp_equals_unpruned_and_oracle(rng):
     np.testing.assert_allclose(a.T.numpy(), T_true, atol=1e-3)
 
 
-def test_icp_converge_stops_on_epsilon(rng):
+def test_icp_converge_stops_on_epsilon():
+    rng = np.random.default_rng(105)
     src, dst, _, _, _ = _icp_scene(rng, masked=0.0)
     ps, pd = PointCloud.from_points(src), PointCloud.from_points(dst)
     res = icp_converge(ps, pd, max_iterations=50, max_corr_dist=0.2,
@@ -268,7 +273,8 @@ def test_icp_converge_stops_on_epsilon(rng):
 
 # --- models/registration.py ----------------------------------------------
 
-def test_register_pair_matches_jax(rng):
+def test_register_pair_matches_jax():
+    rng = np.random.default_rng(106)
     src, dst, smask, dmask, T_true = _icp_scene(rng)
     smask[:] = dmask[:] = True
     # picks: four destination points and the source points they came from
@@ -347,7 +353,8 @@ def test_register_global_recovers_large_rotation():
         PR.register_global(dst, dst, torch.Generator(), fpfh_starts=8)
 
 
-def test_pca_axes_right_handed_like_jax(rng):
+def test_pca_axes_right_handed_like_jax():
+    rng = np.random.default_rng(107)
     for s in range(4):
         xyz = (rng.normal(size=(500, 3)) * [3.0, 1.0, 0.3]).astype(
             np.float32) @ random_se3(seed=s, max_angle=3)[:3, :3].T
@@ -365,12 +372,54 @@ def test_pca_axes_right_handed_like_jax(rng):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("fn", ["nearest_neighbors", "icp_batched",
+                                "icp_point_to_plane_batched", "icp",
+                                "icp_converge", "register_pair",
+                                "register_global"])
+def test_entry_points_take_and_ignore_the_tile_arguments(fn):
+    """The JAX package's query_tile/ref_tile (its XLA sweep's tiles) are
+    accepted and ignored: a call with them equals the call without them."""
+    from pointcloud_stitching_tpu_torch.ops import (
+        icp_batched, icp_point_to_plane_batched, nearest_neighbors)
+    rng = np.random.default_rng(120)
+    src, dst, smask, dmask, _ = _icp_scene(rng, n=600)
+    ps = PointCloud(xyz=t(src), mask=t(smask))
+    pd = PointCloud(xyz=t(dst), mask=t(dmask))
+    bs = PointCloud(xyz=ps.xyz[None].repeat(2, 1, 1),
+                    mask=ps.mask[None].repeat(2, 1))
+    bd = PointCloud(xyz=pd.xyz[None].repeat(2, 1, 1),
+                    mask=pd.mask[None].repeat(2, 1))
+    normals = torch.nn.functional.normalize(bd.xyz, dim=-1)
+    calls = {
+        "nearest_neighbors": lambda **kw: nearest_neighbors(
+            ps.xyz, pd.xyz, pd.mask, **kw),
+        "icp_batched": lambda **kw: icp_batched(bs, bd, iterations=3, **kw),
+        "icp_point_to_plane_batched": lambda **kw:
+            icp_point_to_plane_batched(bs, bd, normals, iterations=3, **kw),
+        "icp": lambda **kw: icp(ps, pd, iterations=3, max_corr_dist=0.2,
+                                prune=True, **kw),
+        "icp_converge": lambda **kw: icp_converge(ps, pd, max_iterations=10,
+                                                  max_corr_dist=0.2, **kw),
+        "register_pair": lambda **kw: PR.register_pair(
+            ps, pd, max_iterations=10, max_corr_dist=0.2, **kw),
+        "register_global": lambda **kw: PR.register_global(
+            ps, pd, torch.Generator().manual_seed(0), num_starts=25,
+            coarse_capacity=256, **kw),
+    }
+    plain = calls[fn]()
+    tiled = calls[fn](query_tile=256, ref_tile=512)
+    for a, b in zip(torch.utils._pytree.tree_leaves(plain),
+                    torch.utils._pytree.tree_leaves(tiled)):
+        assert torch.equal(a, b)
+
+
 # --- the copied file readers and writers ----------------------------------
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
 @pytest.mark.parametrize("fmt", ["ply_bin", "ply_ascii", "ply_normals",
                                  "pcd_bin", "pcd_ascii", "pcd_compressed"])
-def test_cloud_files_cross_read(tmp_path, rng, writer, fmt):
+def test_cloud_files_cross_read(tmp_path, writer, fmt):
+    rng = np.random.default_rng(108)
     xyz = rng.normal(size=(300, 3)).astype(np.float32)
     rgb = rng.integers(0, 256, (300, 3)).astype(np.uint8)
     W, R = (JIO, PIO) if writer == "jax" else (PIO, JIO)
@@ -395,7 +444,8 @@ def test_cloud_files_cross_read(tmp_path, rng, writer, fmt):
         np.testing.assert_array_equal(wc, rgb)
 
 
-def test_cal_mesh_and_intrinsics_files_cross_read(tmp_path, rng):
+def test_cal_mesh_and_intrinsics_files_cross_read(tmp_path):
+    rng = np.random.default_rng(109)
     T = random_se3(seed=3)
     JIO.save_cal(str(tmp_path / "a.cal"), T)
     PIO.save_cal(str(tmp_path / "b.cal"), T)
@@ -438,8 +488,9 @@ def _port_cli(*args, env_extra=None):
         capture_output=True, text=True, env=env, timeout=300, cwd=REPO)
 
 
-def test_register_cli_matches_jax_cli(tmp_path, rng):
+def test_register_cli_matches_jax_cli(tmp_path):
     """tests/test_tools.py's picks case through both CLIs, with --prune."""
+    rng = np.random.default_rng(110)
     pts = rng.uniform(-1, 1, (2000, 3)).astype(np.float32)
     T_true = random_se3(seed=5, max_angle=0.4, max_trans=0.4)
     sp, dp = str(tmp_path / "src.ply"), str(tmp_path / "dst.pcd")

@@ -171,7 +171,8 @@ def test_stitch_points_step_and_normals_output_match_jax():
 @pytest.mark.parametrize("closure,gate,gate_rot", [
     (False, float("inf"), float("inf")), (True, float("inf"), float("inf")),
     (True, 0.25, 0.26), (True, 1e-4, 0.26), (True, 0.25, 1e-5)])
-def test_compose_ring_corrections_matches_jax(rng, closure, gate, gate_rot):
+def test_compose_ring_corrections_matches_jax(closure, gate, gate_rot):
+    rng = np.random.default_rng(21)
     deltas = np.stack([random_se3(seed=int(s), max_angle=0.02, max_trans=0.02)
                        for s in rng.integers(0, 10_000, 5)])
     wc, wl = jax_compose(jnp.asarray(deltas), closure, gate, gate_rot)
@@ -206,17 +207,44 @@ def test_pipeline_autofit_grows_a_saturated_leaf():
 
 
 def test_stitch_step_refuses_colour():
+    """Colour and normals both ride the rgb channel: a step asked for both
+    refuses the colour."""
     depths, ji, ext = _scene()
-    pi, pcfg = _port_state(ji, _jax_cfg())
-    with pytest.raises(NotImplementedError):
+    pi, pcfg = _port_state(ji, _jax_cfg(with_normals=True))
+    with pytest.raises(ValueError, match="rgb channel"):
         P.stitch_step(pcfg, pi, extrinsics_from_numpy(ext),
                       torch.from_numpy(depths),
                       colors=torch.zeros((NCAM, H, W, 3), dtype=torch.uint8))
 
 
+def test_stitch_step_takes_the_reference_positional_order():
+    """(cfg, intr, extrinsics, depths, colors, cam_mask, color_intr,
+    color_ext, out_leaf), as the JAX package's stitch_step."""
+    import inspect
+    assert list(inspect.signature(P.stitch_step).parameters) == list(
+        inspect.signature(jax_step).parameters)
+    depths, ji, ext = _scene()
+    pi, pcfg = _port_state(ji, _jax_cfg(icp_enabled=False,
+                                        out_leaf_autofit=True))
+    leaf = torch.tensor(0.05)
+    mask = torch.tensor([True, False, True])
+    pos = P.stitch_step(pcfg, pi, extrinsics_from_numpy(ext),
+                        torch.from_numpy(depths), None, mask, None, None,
+                        leaf)
+    kw = P.stitch_step(pcfg, pi, extrinsics_from_numpy(ext),
+                       torch.from_numpy(depths), cam_mask=mask,
+                       out_leaf=leaf)
+    ref = P.stitch_step(pcfg, pi, extrinsics_from_numpy(ext),
+                        torch.from_numpy(depths), cam_mask=mask)
+    assert torch.equal(pos.cloud.xyz, kw.cloud.xyz)
+    assert int(pos.metrics.points_out) < int(ref.metrics.points_out)
+
+
 def test_port_imports_no_jax():
     """The port must run where JAX is not installed: neither the package
-    nor chip_smoke.py imports jax, flax or the JAX package."""
+    nor chip_smoke.py imports jax, flax or the JAX package. Every module of
+    the port (runtime, native codecs, metrics included) and chip_smoke.py
+    import in a process where importing any of those fails."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
                      r"pointcloud_stitching_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
@@ -224,11 +252,35 @@ def test_port_imports_no_jax():
         for d, _, fs in os.walk(os.path.join(REPO,
                                              "pointcloud_stitching_tpu_torch"))
         for f in fs if f.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 30
     for path in files:
         with open(path) as fh:
             for line in fh:
                 assert not bad.match(line), (path, line)
+    code = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "pointcloud_stitching_tpu"):
+    sys.modules[name] = None   # any import of these raises ImportError
+import pointcloud_stitching_tpu_torch as P
+names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+assert not [m for m in sys.modules if m.split(".")[0] in
+            ("jax", "jaxlib", "flax") and sys.modules[m] is not None]
+print(len(names))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    names = int(proc.stdout.split()[-1])
+    assert names > 35
+    for mod in ("runtime.client", "runtime.stitch_cli", "runtime.wire",
+                "native.snappy", "native.lzf", "utils.metrics"):
+        assert os.path.exists(os.path.join(
+            REPO, "pointcloud_stitching_tpu_torch",
+            *mod.split(".")) + ".py"), mod
 
 
 def test_chip_smoke_fails_without_a_card():
