@@ -8,8 +8,10 @@ configuration (8 cameras of 848x480 u16 depth, ring point-to-plane ICP with
 points and the TSDF scene model (``models.tsdf``: integrate, extract,
 save/load, raycast, track and the mesh CLI) at 4 x 848x480 into a 256^3
 volume, the streaming runtime (``runtime/``: fake camera servers, the
-pipelined client, the stitch CLI and the camera test) at 8 x 848x480, and
-checks the five hand-written CUDA kernels on those paths:
+pipelined client, the stitch CLI and the camera test) at 8 x 848x480, the
+temporal voxel map (``models.voxel_map``) at 2^20 slots with change
+detection, localization and the meshers, and checks the five hand-written
+CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -65,8 +67,21 @@ checks the five hand-written CUDA kernels on those paths:
      a direct ``StitchingPipeline`` call bit for bit, host syncs per frame
      at most the direct call's + 1, the kernels' launches per frame; fps,
      p50/p99 latency, points/s, the stage table, peak memory; then the
-     stitch CLI (20 frames, --save-dir, --tsdf-leaf) and ``camera_test
-     --deproject`` as subprocesses against the servers.
+     stitch CLI (20 frames, --save-dir, --tsdf-leaf, --map-leaf 0.01
+     --map-out scene.npz) and ``camera_test --deproject`` as subprocesses
+     against the servers, and the mesh CLI on the CLI's map checkpoint and
+     on one 848x480 depth frame (--bilateral) as subprocesses;
+ 10. the temporal voxel map: the flagship stitch of phase 9's rig frames
+     into ``TemporalAccumulator(capacity=2**20, leaf=0.01)``, without and
+     with colour, 10 updates at decay 1 and 10 at decay 0.5 (4 of the rig,
+     then 6 of the rig moved 5 cm, so evictions happen inside the run):
+     'auto' equal to 'torch' bit for bit after every update, one K1 launch
+     per update, no host sync in an update, ms per update, peak memory; K1
+     at the map's shape (2^20 + 262144 rows, 7 and 10 channels) against
+     its plain version and timed (its own kernels entries); then
+     ``detect_changes_map`` of the mapped and of the moved frame,
+     ``localize`` of a moved cloud against the map and
+     ``reconstruct_surface`` of the map.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -294,14 +309,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/9 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/10 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/9 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/10 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -355,7 +370,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/9 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/10 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -622,7 +637,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/9 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/10 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -672,7 +687,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/9 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/10 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -698,7 +713,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/9 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/10 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -732,7 +747,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/9 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/10 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -742,6 +757,9 @@ def main() -> int:
     registration_phase(dev, kb, report, kernels, card)
     tsdf_phase(dev, kb, report, kernels, card)
     stream_phase(dev, kb, card)
+    map_phase(dev, kb, report, kernels, card)
+    say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
+        "device check")
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(card)
@@ -849,7 +867,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/9 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/10 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1243,7 +1261,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/9 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/10 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1478,6 +1496,7 @@ def stream_phase(dev, kb, card) -> None:
                                                 StitchingPipeline, native)
     from pointcloud_stitching_tpu_torch.io import load_ply
     from pointcloud_stitching_tpu_torch.models.tsdf import load_volume
+    from pointcloud_stitching_tpu_torch.models.voxel_map import load_map
     from pointcloud_stitching_tpu_torch.runtime import (
         Codec, FakeCameraServer, MulticameraClient)
 
@@ -1542,7 +1561,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/9 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/10 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1579,10 +1598,12 @@ def stream_phase(dev, kb, card) -> None:
                    "pointcloud_stitching_tpu_torch.runtime.stitch_cli"]
             for srv in servers[:NCAM]:
                 cli += ["--camera", f"127.0.0.1:{srv.port}"]
+            scene = os.path.join(tmp, "scene.npz")
             cli += ["--height", str(H), "--width", str(W),
                     "--frames", str(CLI_FRAMES), "--color", "--save-dir",
                     tmp, "--save-every", "10", "--tsdf-leaf", "0.02",
                     "--tsdf-every", "5", "--tsdf-out", npz,
+                    "--map-leaf", "0.01", "--map-out", scene,
                     "--print-every", "10", "--timing"]
             cam = [sys.executable, "-m",
                    "pointcloud_stitching_tpu_torch.runtime.camera_test",
@@ -1612,17 +1633,319 @@ def stream_phase(dev, kb, card) -> None:
             vol = load_volume(npz, device=dev)
             occ = int((vol.weight > 0).sum())
             check(occ > 0 and vol.rgb is not None, "TSDF without weights")
+            vmap = load_map(scene, device=dev)
+            n_vox = int(vmap.count())
+            check(n_vox > 0 and vmap.rgb_sums is not None
+                  and vmap.capacity == 2 ** 20,
+                  "stitch_cli's voxel map is empty or has no colour")
             cli_out = res[0][0].strip().splitlines()
             say(f"    stitch_cli ({CLI_FRAMES} frames, --color, TSDF every "
-                f"5 at 2 cm) and camera_test --deproject together "
-                f"{t_sub:.1f} s as subprocesses: {len(xyz)} points in "
-                f"{plys[-1]}, {occ} observed voxels in the checkpoint; "
-                f"cli: {cli_out[-2]} | {cli_out[-1]}; camera_test: "
+                f"5 at 2 cm, voxel map at 1 cm) and camera_test --deproject "
+                f"together {t_sub:.1f} s as subprocesses: {len(xyz)} points "
+                f"in {plys[-1]}, {occ} observed voxels in the TSDF "
+                f"checkpoint, {n_vox} in the map's; cli: {cli_out[-3]} | "
+                f"{cli_out[-1]}; camera_test: "
                 f"{res[1][0].strip().splitlines()[-1]}")
+            # the mesh CLI on the CLI's map checkpoint and on one 848x480
+            # depth frame (bilateral-smoothed), as subprocesses
+            depth_npy = os.path.join(tmp, "depth.npy")
+            np.save(depth_npy, frames[0])
+            mesh = [sys.executable, "-m",
+                    "pointcloud_stitching_tpu_torch.tools.mesh_cli"]
+            # 128 nodes a side (phase 10 meshes a map at the default 256)
+            jobs = [mesh + [scene, os.path.join(tmp, "scene_mesh.ply"),
+                            "--max-nodes", "128"],
+                    mesh + [depth_npy, os.path.join(tmp, "depth_mesh.ply"),
+                            "--bilateral", "0.03"]]
+            t = time.perf_counter()
+            procs = [subprocess.Popen(a, cwd=REPO, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE) for a in jobs]
+            try:
+                res = [p.communicate(timeout=300) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            lines = []
+            for p, (out, err), tag in zip(procs, res, ("map", "depth")):
+                check(p.returncode == 0, f"mesh_cli ({tag}) failed:\n"
+                                         f"{err[-3000:]}")
+                lines.append(out.strip().splitlines()[-1])
+                n_tri = int(lines[-1].split(" triangles")[0].split()[-1])
+                check(n_tri > 1000, f"mesh_cli ({tag}): {lines[-1]}")
+            say(f"    mesh_cli on the map checkpoint (--max-nodes 128) and "
+                f"on a {H}x{W} depth "
+                f"frame (--bilateral 0.03) together "
+                f"{time.perf_counter() - t:.1f} s as subprocesses: "
+                f"{' | '.join(os.path.basename(l) for l in lines)}")
     finally:
         for srv in servers:
             srv.stop()
     say(f"    phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+# --- phase 10: the temporal voxel map ----------------------------------------
+MAP_CAPACITY = 2 ** 20   # TemporalAccumulator's documented sizing
+MAP_LEAF = 0.01
+MAP_UPDATES = 10
+MAP_SHIFT = 0.05         # meters: the rig's second pose in the eviction runs
+MAP_DECAY = 0.5          # 1.875 * 0.5^6 < 0.05: pose A's own voxels evict at
+                         # the 6th update of pose B (4 of A, then 6 of B)
+
+
+def stream_colors(frames) -> np.ndarray:
+    """FakeCameraServer's synthetic depth-aligned colour of the rig's
+    frames ([NCAM, H, W, 3] uint8)."""
+    d = np.stack([f[0] for f in frames]).astype(np.float32)
+    return np.stack([np.clip(d / 16.0, 0, 255), np.clip(255 - d / 16.0, 0, 255),
+                     np.full_like(d, 128.0)], axis=-1).astype(np.uint8)
+
+
+def same_map(a, b) -> bool:
+    return all(torch_equal(getattr(a, k), getattr(b, k))
+               for k in ("ijk", "sums", "weight", "leaf", "rgb_sums"))
+
+
+def device_profile(fn, calls: int = 5):
+    """``torch.profiler`` over ``calls`` synced calls of ``fn``: (wall ms,
+    device busy ms, kernel launches, [(device ms, launches, kernel)] by
+    device time), all per call."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / calls
+    kern = collections.defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kern[ev.name][0] += ev.device_time_total / 1e3 / calls
+            kern[ev.name][1] += 1
+    top = sorted(((t_, n / calls, name) for name, (t_, n) in kern.items()),
+                 reverse=True)
+    return (wall, sum(v[0] for v in kern.values()),
+            sum(v[1] for v in kern.values()) / calls, top)
+
+
+def timed_calls(module, names, timings):
+    """Wrap ``module``'s functions ``names`` so that each call adds its
+    synced host ms to ``timings[name]``; returns a function that undoes
+    it."""
+    import torch
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[name] = timings.get(name, 0.0) + (
+                time.perf_counter() - t) * 1e3
+            return out
+        return inner
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    return lambda: [setattr(module, n, fn) for n, fn in saved.items()]
+
+
+def map_phase(dev, kb, report, kernels, card) -> None:
+    """Phase 10: the flagship stitch of phase 9's rig into a
+    TemporalAccumulator of 2^20 slots at 1 cm, with and without colour, at
+    decay 1 and with evictions; K1 at the map's shape; then change
+    detection, localization and the isosurface of the map."""
+    import torch
+    from pointcloud_stitching_tpu_torch import (Intrinsics, StitchConfig,
+                                                StitchingPipeline)
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+        k1_grid, segment_sum_from_flags)
+    from pointcloud_stitching_tpu_torch.models import voxel_map as VM
+    from pointcloud_stitching_tpu_torch.ops import (
+        detect_changes_map, reconstruct_surface, se3_apply, se3_from_rt,
+        se3_inverse, so3_exp)
+    from pointcloud_stitching_tpu_torch.ops import surface as surface_mod
+
+    t_phase = time.perf_counter()
+    k1 = "segment_sum_from_flags"
+    frames, ext = stream_rig()
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i0.stack([i0] * (NCAM - 1))
+    d = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    c = torch.from_numpy(stream_colors(frames)).to(dev)
+    ext_b = ext.copy()
+    ext_b[:, 0, 3] += MAP_SHIFT
+    clouds = {}
+    for color in (False, True):
+        pipes = [StitchingPipeline(flagship_cfg(StitchConfig,
+                                                with_color=color),
+                                   intr, e, device=dev) for e in (ext, ext_b)]
+        tag = "colour" if color else "depth"
+        map_launches = 0
+        for decay in (1.0, MAP_DECAY):
+            plan = ([0] * MAP_UPDATES if decay == 1.0
+                    else [0] * 4 + [1] * (MAP_UPDATES - 4))
+            acc, ref = (VM.TemporalAccumulator(
+                capacity=MAP_CAPACITY, leaf=MAP_LEAF, decay=decay,
+                with_rgb=color, impl=impl, device=dev)
+                for impl in ("auto", "torch"))
+            counts = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kb.reset_launches()
+            for p in plan:
+                out = pipes[p](d, c if color else None)
+                before = kb.LAUNCHES[k1]
+                acc.update(out.cloud)
+                check(kb.LAUNCHES[k1] == before + 1,
+                      f"map update ({tag}, decay {decay}) did not launch K1 "
+                      "once")
+                map_launches += 1
+                ref.update(out.cloud)
+                check(same_map(acc.state, ref.state),
+                      f"map ({tag}, decay {decay}) after update "
+                      f"{len(counts) + 1}: 'auto' differs from 'torch'")
+                counts.append(int(acc.state.count()))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            launches = dict(kb.LAUNCHES)
+            n = len(plan)
+            want_l = {"nn_batched_prepared": 5 * n, k1: 2 * n,
+                      "segment_sum_sorted": n}
+            check(launches == want_l, f"map run launches {launches}, want "
+                                      f"{want_l}")
+            check(counts[-1] < MAP_CAPACITY, "the map saturated")
+            if decay == 1.0:
+                check(len(set(counts)) == 1, f"static frames changed the "
+                                             f"voxel set: {counts}")
+                clouds[color] = (acc.state, out.cloud,
+                                 pipes[1](d, c if color else None).cloud)
+            else:
+                check(counts[-1] < counts[-2], f"no eviction: {counts}")
+            cloud = out.cloud
+            ms_update = median_ms(lambda: acc.update(cloud), 10)
+            # device time per update, the queue held while 3 are enqueued
+            dev_update = cuda_ms(lambda: acc.update(cloud), 3)
+            syncs = count_syncs(lambda: acc.update(cloud))
+            check(syncs == 0, f"{syncs} host syncs in one map update")
+            if decay == 1.0:
+                wall, busy, n_k, top = device_profile(
+                    lambda: acc.update(cloud))
+                say(f"    one map update ({tag}) under torch.profiler: "
+                    f"{wall:.3f} ms wall, device busy {busy:.3f} ms (idle "
+                    f"share {1 - busy / wall:.3f}), {n_k:.0f} kernel "
+                    f"launches; most device time: " + "; ".join(
+                        f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
+                        for t_, n_, name in top[:4]))
+            say(f"[10/10 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+                f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
+                f"{n} updates, 'auto' == 'torch' bit for bit after each; "
+                f"voxels per update {counts}; launches {launches} (1 K1 per "
+                f"map update); ms per update {ms_update:.3f} (median of 10 "
+                f"synced), device ms per update {dev_update:.3f}; host syncs "
+                f"per update {syncs}; peak memory "
+                f"{peak:.1f} MiB")
+
+        # K1 at the map's shape: the rows of the last update's merge
+        flags, vals = VM._merge_rows(acc.state, cloud, MAP_DECAY, 0.05)
+        n_rows, ch = vals.shape
+        junk = [torch.full((MAP_CAPACITY, ch), float("nan"), device=dev)
+                for _ in range(2)]
+        del junk
+        got = segment_sum_from_flags(vals, flags, MAP_CAPACITY, impl="cuda")
+        again = segment_sum_from_flags(vals, flags, MAP_CAPACITY, impl="cuda")
+        want = segment_sum_from_flags(vals, flags, MAP_CAPACITY, impl="torch")
+        torch.cuda.synchronize()
+        bad = (got != want).any(dim=1).nonzero().flatten()
+        check(bad.numel() == 0,
+              f"K1 at the map's shape ({tag}) differs from plain in "
+              f"{bad.numel()} slots, first {bad[:5].tolist()}: "
+              f"{got[bad[:3]].tolist()} vs {want[bad[:3]].tolist()}")
+        check(torch.equal(got, again), f"K1 at the map's shape ({tag}): two "
+                                       "launches differ")
+        # a control: each empty row (weight 0) flagged as a run of its own
+        # gives the same sums; it shows what the empty rows' one long run
+        # at the end of the sorted rows costs K1
+        tail = flags | (vals[:, 6] == 0)
+        check(torch.equal(segment_sum_from_flags(
+            vals, tail, MAP_CAPACITY, impl="cuda"), got),
+            "K1 with every empty row flagged gives other sums")
+        t_tail = cuda_ms(lambda: segment_sum_from_flags(
+            vals, tail, MAP_CAPACITY, impl="cuda"), 20)
+        times = time_in_turns(
+            lambda: segment_sum_from_flags(vals, flags, MAP_CAPACITY,
+                                           impl="cuda"),
+            lambda: segment_sum_from_flags(vals, flags, MAP_CAPACITY,
+                                           impl="torch"))
+        rows = int((torch.cumsum(flags.to(torch.int32), 0)
+                    <= MAP_CAPACITY).sum())
+        tiles, zero_blocks = k1_grid(n_rows, ch, MAP_CAPACITY)
+        say(f"    K1 at the map's shape ({tag}) {tuple(vals.shape)} into "
+            f"{MAP_CAPACITY} slots: bitwise equal to plain, two launches "
+            f"bitwise equal; {int(flags.sum())} runs, {rows} of {n_rows} "
+            f"rows have an id below the capacity; 1 launch of {tiles} tiles "
+            f"+ {zero_blocks} zero-only blocks; {int((vals[:, 6] == 0).sum())}"
+            f" empty rows, with each flagged as its own run {t_tail:.4f} ms "
+            f"(sums bit for bit equal)")
+        name = "segment_sum_from_flags (voxel map" + (
+            ", 10 channels)" if color else ")")
+        report(name, "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
+               "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
+               (got - want).abs().max().item(), times,
+               nbytes(flags, got) + rows * ch * vals.element_size(),
+               rows * ch)
+        kernels[name]["launches"] = map_launches
+        del flags, vals, got, again, want, acc, ref, pipes
+
+    # change detection, localization and the isosurface of the depth map
+    vmap, cloud_a, cloud_b = clouds[False]
+    t = time.perf_counter()
+    same = detect_changes_map(vmap, cloud_a)
+    moved = detect_changes_map(vmap, cloud_b)
+    n_moved = int(moved.sum())
+    t_change = (time.perf_counter() - t) * 1e3
+    check(not bool(same.any()), "points of the mapped frame read as changed")
+    check(0 < n_moved < int(cloud_b.mask.sum()),
+          f"{n_moved} changed points in the shifted frame")
+    T_true = se3_from_rt(so3_exp(torch.tensor([0.0, 0.0, 0.0175],
+                                              device=dev)),
+                         torch.tensor([0.02, -0.01, 0.01], device=dev))
+    query = cloud_a.replace(xyz=se3_apply(se3_inverse(T_true), cloud_a.xyz))
+    t = time.perf_counter()
+    res = VM.localize(vmap, query, iterations=20, max_corr_dist=0.1)
+    T_got = res.T.cpu().numpy()
+    t_loc = time.perf_counter() - t
+    e_t, e_r = pose_error(T_got, T_true.cpu().numpy())
+    check(e_t < 0.005 and e_r < 0.25,
+          f"localize missed the transform by {e_t * 1e3:.3f} mm / "
+          f"{e_r:.4f} deg")
+    stages = {}
+    undo = timed_calls(surface_mod, ("map_grid_bounds", "field_from_map",
+                                     "marching_tetrahedra", "weld_mesh"),
+                       stages)
+    t = time.perf_counter()
+    try:
+        verts, faces, n_active = reconstruct_surface(vmap)
+    finally:
+        undo()
+    t_mesh = time.perf_counter() - t
+    check(len(faces) > 0 and np.isfinite(verts).all(), "no map surface")
+    say(f"    change detection: 0 of {int(cloud_a.mask.sum())} points of the "
+        f"mapped frame changed, {n_moved} of {int(cloud_b.mask.sum())} of "
+        f"the frame shifted {MAP_SHIFT} m ({t_change:.1f} ms for both); "
+        f"localize (20 iterations against {int(vmap.count())} voxels) "
+        f"error {e_t * 1e3:.4f} mm / {e_r:.5f} deg in {t_loc:.2f} s; "
+        f"reconstruct_surface {len(verts)} vertices, {len(faces)} faces, "
+        f"{n_active} active cells in {t_mesh:.2f} s (stage ms, synced: "
+        f"{ {k: round(v, 1) for k, v in stages.items()} })")
+    say(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
 
 if __name__ == "__main__":
     sys.exit(main())

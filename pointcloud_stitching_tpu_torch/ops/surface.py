@@ -10,7 +10,9 @@ to a fixed ``cell_capacity``, and every active cell emits a block of 12
 triangle slots with a validity mask. The JAX package selects the case
 tables' entries with where-chains (a TPU layout choice); here they are
 gathers from the same composed tables, which pick the same values.
-``field_from_map`` and ``reconstruct_surface`` wait for the voxel-map port.
+``field_from_map``, ``map_grid_bounds`` and ``reconstruct_surface`` mesh a
+voxel map (``models/voxel_map.py``): its occupancy, densified onto a grid
+and box-filtered, at an iso level.
 """
 from __future__ import annotations
 
@@ -259,3 +261,110 @@ def weld_mesh(verts, valid, decimals: int = 6):
     ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
           & (faces[:, 0] != faces[:, 2]))
     return uniq.astype(np.float32), faces[ok]
+
+
+def field_from_map(ijk: torch.Tensor, weight: torch.Tensor, origin_ijk,
+                   shape: tuple[int, int, int], min_weight=0.0,
+                   saturate=1.0, smooth_iters: int = 1) -> torch.Tensor:
+    """Densify a sparse voxel map into an occupancy field for meshing.
+
+    Args:
+      ijk: [cap, 3] absolute biased voxel indices (``VoxelMap.ijk``;
+        sentinel rows ignored).
+      weight: [cap] evidence weights.
+      origin_ijk: [3] absolute biased index of grid node (0, 0, 0)
+        (``map_grid_bounds`` picks it).
+      shape: (X, Y, Z) node counts.
+      min_weight: voxels below this evidence count as empty.
+      saturate: weight at which occupancy clips to 1 (occupancy ramps
+        linearly up to it).
+      smooth_iters: 3³ box-filter passes (one puts the iso-0.5 crossing
+        between occupied and empty nodes with sub-voxel interpolation).
+
+    Returns [X, Y, Z] float32 occupancy in [0, 1]; node (i, j, k) sits at
+    ``(origin_ijk - BIAS + (i, j, k) + 0.5) * leaf``.
+    """
+    from ..models.voxel_map import _SENTINEL
+    X, Y, Z = shape
+    dev = ijk.device
+    occ = (ijk[:, 0] != _SENTINEL) & (weight >= scalar(min_weight, weight))
+    g = ijk - torch.as_tensor(origin_ijk, dtype=torch.int32).to(dev)[None, :]
+    inb = torch.ones_like(occ)
+    for a, n in enumerate((X, Y, Z)):
+        inb = inb & (g[:, a] >= 0) & (g[:, a] < n)
+    keep = occ & inb
+    val = torch.where(keep, torch.clamp(weight / scalar(saturate, weight),
+                                        0.0, 1.0), 0.0)
+    gi = torch.where(keep[:, None], g, 0).long()
+    flat = (gi[:, 0] * Y + gi[:, 1]) * Z + gi[:, 2]
+    field = torch.zeros((X * Y * Z,), dtype=torch.float32, device=dev)
+    field = field.scatter_reduce(0, flat, val, "amax").reshape(X, Y, Z)
+    for _ in range(smooth_iters):
+        field = _box3(field)
+    return field
+
+
+def _box3(f: torch.Tensor) -> torch.Tensor:
+    """Separable 3³ box filter with zero (empty-space) borders; each pass
+    is (lo + f + hi) / 3 in that order, as the JAX package writes it (XLA
+    on the CPU multiplies by 1/3 and fuses passes into multiply-adds, so
+    the two agree to a few float32 ulps)."""
+    for ax in range(3):
+        n = f.shape[ax]
+        z = torch.zeros_like(f.narrow(ax, 0, 1))
+        lo = torch.cat([z, f.narrow(ax, 0, n - 1)], dim=ax)
+        hi = torch.cat([f.narrow(ax, 1, n - 1), z], dim=ax)
+        f = (lo + f + hi) / 3.0
+    return f
+
+
+def map_grid_bounds(vmap, min_weight: float = 0.0, pad: int = 2,
+                    max_nodes: int = 256):
+    """Fit a dense grid to a map's occupied voxels, on the host.
+
+    Returns ``(origin_ijk [3] int32, shape (X, Y, Z), origin_world [3]
+    f32)``: the occupied bounding box plus ``pad`` empty layers (so the
+    surface closes around the outermost voxels), clamped to ``max_nodes``
+    per axis. Reads the map back to the host: an offline step.
+    """
+    from ..models.voxel_map import _BIAS, _SENTINEL
+    ijk = _host(vmap.ijk)
+    w = _host(vmap.weight)
+    occ = (ijk[:, 0] != _SENTINEL) & (w >= min_weight)
+    if not occ.any():
+        raise ValueError("map has no occupied voxels at this min_weight")
+    lo = ijk[occ].min(0) - pad
+    hi = ijk[occ].max(0) + pad
+    shape = tuple(int(min(h - l + 2, max_nodes)) for l, h in zip(lo, hi))
+    leaf = float(_host(vmap.leaf))
+    origin_world = ((lo - np.asarray(_BIAS)).astype(np.float32) + 0.5) * leaf
+    return (lo.astype(np.int32), shape,
+            np.asarray(origin_world, np.float32))
+
+
+def reconstruct_surface(vmap, iso: float = 0.5, min_weight: float = 0.0,
+                        saturate: float = 1.0, smooth_iters: int = 1,
+                        cell_capacity: int | None = None, pad: int = 2,
+                        max_nodes: int = 256):
+    """Voxel map -> crack-free triangle mesh: ``map_grid_bounds`` ->
+    ``field_from_map`` -> ``marching_tetrahedra`` -> ``weld_mesh``.
+    Returns ``(verts [V, 3] np.f32, faces [F, 3] np.int32, n_active)``,
+    ready for ``io.plyio.save_mesh``."""
+    origin_ijk, shape, origin_world = map_grid_bounds(
+        vmap, min_weight=min_weight, pad=pad, max_nodes=max_nodes)
+    field = field_from_map(vmap.ijk, vmap.weight, origin_ijk, shape,
+                           min_weight=min_weight, saturate=saturate,
+                           smooth_iters=smooth_iters)
+    if cell_capacity is None:
+        ncells = (shape[0] - 1) * (shape[1] - 1) * (shape[2] - 1)
+        # surface shell heuristic: ~n² cells of the n³ grid, padded 8x
+        cell_capacity = int(min(ncells, max(4096, 8 * ncells ** (2 / 3))))
+    verts, valid, n_active = marching_tetrahedra(
+        field, iso, cell_capacity, origin=origin_world, leaf=vmap.leaf)
+    n_active = int(n_active)
+    if n_active > cell_capacity:
+        raise ValueError(
+            f"surface has {n_active} active cells > capacity "
+            f"{cell_capacity}; pass a larger cell_capacity")
+    v, f = weld_mesh(verts, valid)
+    return v, f, n_active

@@ -13,14 +13,15 @@ CLI:
   python -m pointcloud_stitching_tpu_torch.runtime.stitch_cli \\
       --camera 127.0.0.1:8000 --camera 127.0.0.1:8001 \\
       [--cal-dir cals/] [--config cfg.json] [--frames 300] \\
-      [--save-dir out/ --save-every 30] [--tsdf-leaf 0.02]
+      [--save-dir out/ --save-every 30] [--tsdf-leaf 0.02] \\
+      [--map-leaf 0.01 --map-out scene.npz]
 
 The device comes from PCS_PLATFORM: unset or ``cuda`` runs on the first
 GPU (and fails without one), ``cpu`` runs the kernels' plain versions on
 the CPU. Flags whose modules are not ported yet exit with an error before
-any socket is opened: --map-* (the voxel map, ROADMAP §1 entry 5),
---drop-plane (plane segmentation, entry 8), --publish-port, --view* and
---trace-dir (publisher, viewer and tracing, entry 10).
+any socket is opened: --drop-plane (plane segmentation, ROADMAP §1 entry
+8), --publish-port, --view* and --trace-dir (publisher, viewer and
+tracing, entry 10).
 """
 from __future__ import annotations
 
@@ -32,12 +33,6 @@ import numpy as np
 
 # unported flags: (argparse dest, flag, what is missing, ROADMAP entry)
 _UNPORTED = (
-    ("map_leaf", "--map-leaf", "the voxel map (models/voxel_map.py)", 5),
-    ("map_in", "--map-in", "the voxel map (models/voxel_map.py)", 5),
-    ("map_capacity", "--map-capacity", "the voxel map", 5),
-    ("map_decay", "--map-decay", "the voxel map", 5),
-    ("map_min_weight", "--map-min-weight", "the voxel map", 5),
-    ("map_out", "--map-out", "the voxel map", 5),
     ("drop_plane", "--drop-plane", "plane segmentation (ops/sac.py)", 8),
     ("publish_port", "--publish-port", "the cloud publisher "
      "(runtime/publisher.py)", 10),
@@ -100,6 +95,29 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--record-dir",
                     help="record incoming depth streams as replayable .npy")
     ap.add_argument("--record-frames", type=int, default=300)
+    ap.add_argument("--map-leaf", type=float, default=None,
+                    help="accumulate stitched frames into a persistent "
+                         "temporal voxel map at this leaf size (meters); "
+                         "the denoised map saves to --map-out on exit")
+    ap.add_argument("--map-capacity", type=int, default=None,
+                    help="voxel-map slot capacity (occupied-voxel bound; "
+                         "default 2^20). With --map-in this resizes the "
+                         "loaded checkpoint (grow pads, shrink keeps the "
+                         "highest-evidence voxels)")
+    ap.add_argument("--map-decay", type=float, default=1.0,
+                    help="per-frame map weight decay (1.0 = never forget; "
+                         "0.98 at 30 FPS forgets in ~1.7 s)")
+    ap.add_argument("--map-min-weight", type=float, default=0.05,
+                    help="evict map voxels whose decayed weight falls below "
+                         "this")
+    ap.add_argument("--map-out", default="map.ply",
+                    help="map path written on exit: .ply saves the denoised "
+                         "centroid cloud, .npz saves the full resumable "
+                         "accumulation state (see --map-in)")
+    ap.add_argument("--map-in", default=None,
+                    help="resume accumulation from a .npz map checkpoint "
+                         "(leaf/color come from the file; --map-leaf may "
+                         "be omitted)")
     ap.add_argument("--tsdf-leaf", type=float, default=None,
                     help="fuse depth keyframes into a persistent TSDF "
                          "volume at this voxel size (meters), every "
@@ -294,6 +312,35 @@ def main(argv=None):
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
 
+    map_on = args.map_leaf is not None or args.map_in is not None
+    acc = None
+
+    def map_update(out) -> None:
+        """Fold the stitched cloud into the voxel map, made at the first
+        frame (its colour must match the stitched output's)."""
+        nonlocal acc
+        if acc is None:
+            from ..models.voxel_map import TemporalAccumulator
+            if args.map_in is not None:
+                acc = TemporalAccumulator.load(
+                    args.map_in, capacity=args.map_capacity,
+                    decay=args.map_decay, min_weight=args.map_min_weight,
+                    device=dev)
+                has_rgb = acc.state.rgb_sums is not None
+                if has_rgb != (out.cloud.rgb is not None):
+                    raise ValueError(
+                        f"--map-in {args.map_in} was built "
+                        f"{'with' if has_rgb else 'without'} color but this "
+                        "rig streams the opposite — resume with a matching "
+                        "config or start a fresh map")
+            else:
+                acc = TemporalAccumulator(
+                    capacity=args.map_capacity or (1 << 20),
+                    leaf=args.map_leaf, decay=args.map_decay,
+                    min_weight=args.map_min_weight,
+                    with_rgb=out.cloud.rgb is not None, device=dev)
+        acc.update(out.cloud)
+
     tsdf_state = {"vol": None, "frames": 0,
                   "track_seen": 0, "track_applied": 0, "track_last": None}
 
@@ -357,6 +404,8 @@ def main(argv=None):
         tsdf_state["frames"] += 1
 
     def on_frame(i, out):
+        if map_on:
+            map_update(out)
         if tsdf_on and i % max(args.tsdf_every, 1) == 0:
             tsdf_keyframe(out)
         if args.print_every and i > 0 and i % args.print_every == 0:
@@ -379,6 +428,13 @@ def main(argv=None):
     if args.record_dir:
         paths = client.save_recording(args.record_dir)
         print(f"recorded {len(paths)} camera streams to {args.record_dir}")
+    if acc is not None:
+        if args.map_out.endswith(".npz"):
+            acc.save(args.map_out)   # the full resumable state
+        else:
+            save_cloud(args.map_out, acc.cloud())
+        print(f"saved accumulated map ({int(acc.state.count())} voxels) "
+              f"to {args.map_out}")
     if tsdf_state["vol"] is not None:
         from ..models.tsdf import save_volume
         save_volume(args.tsdf_out, tsdf_state["vol"])

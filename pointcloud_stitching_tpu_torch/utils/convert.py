@@ -1,7 +1,8 @@
 """Carry the JAX package's state over to the port.
 
 The stitcher has no weights: its state is the camera intrinsics, the
-per-camera extrinsics and the config; the TSDF scene model's is its volume.
+per-camera extrinsics and the config; the TSDF scene model's is its volume,
+the temporal voxel map's its slots.
 The JAX side hands them over as numpy arrays (``np.asarray`` of each field)
 and these functions build the port's counterparts, so both sides compute
 the same thing. The config crosses as JSON through
@@ -53,3 +54,18 @@ def tsdf_volume_from_numpy(arrays: dict, device):
     if rgb is not None:
         rgb = torch.tensor(np.asarray(rgb, np.float32), device=device)
     return TSDFVolume(**t, rgb=rgb)
+
+
+def voxel_map_from_numpy(arrays: dict, device):
+    """The port's ``VoxelMap`` from a JAX map's arrays as numpy
+    (``np.asarray`` of ``ijk``, ``sums``, ``weight``, ``leaf`` and, for a
+    coloured map, ``rgb_sums``), on ``device``."""
+    from ..models.voxel_map import VoxelMap
+    dtypes = {"ijk": np.int32, "sums": np.float32, "weight": np.float32,
+              "leaf": np.float32}
+    t = {k: torch.tensor(np.asarray(arrays[k], dt), device=device)
+         for k, dt in dtypes.items()}
+    rgb = arrays.get("rgb_sums")
+    if rgb is not None:
+        rgb = torch.tensor(np.asarray(rgb, np.float32), device=device)
+    return VoxelMap(**t, rgb_sums=rgb)

@@ -316,6 +316,79 @@ def test_flags_segment_kernel_on_two_streams(cuda_device):
         assert torch.equal(out, segment_sum_from_flags(v, f, c, impl="torch"))
 
 
+def _map_clouds(rng, dev, n, with_rgb, shift):
+    """A cloud of ``n`` points in a 0.8 m cube moved by ``shift`` (+ uint8
+    colour), on the card."""
+    xyz = (rng.uniform(-0.4, 0.4, (n, 3)) + shift).astype(np.float32)
+    rgb = (rng.integers(0, 256, (n, 3)).astype(np.float32) if with_rgb
+           else None)
+    return P.PointCloud.from_points(xyz, rgb=rgb, device=dev)
+
+
+@pytest.mark.parametrize("with_rgb,saturated", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_flags_segment_kernel_at_the_map_update(cuda_device, with_rgb,
+                                                saturated):
+    """K1 on what a voxel-map update feeds it (decayed float sums of the map
+    beside fresh coordinates, 7 or 10 channels, N = capacity + cloud rows >
+    capacity, nearly every row kept, or past the capacity when the map is
+    saturated) against its plain version bit for bit."""
+    from pointcloud_stitching_tpu_torch.models import voxel_map as VM
+    rng = np.random.default_rng(90 + 2 * with_rgb + saturated)
+    cap = 4096 if saturated else 1 << 17
+    vm = VM.VoxelMap.create(cap, 0.01, with_rgb=with_rgb,
+                            device=cuda_device)
+    for k in range(3):
+        pc = _map_clouds(rng, cuda_device, 30_000, with_rgb, 0.05 * k)
+        vm = VM.voxel_map_update(vm, pc, decay=0.9, impl="torch")
+    flags, vals = VM._merge_rows(vm, pc, 0.9, 0.05)
+    assert vals.shape == (cap + 30_000, 10 if with_rgb else 7)
+    assert (int(flags.sum()) > cap) == saturated
+    junk = [torch.full((cap, vals.shape[1]), float("nan"),
+                       device=cuda_device) for _ in range(2)]
+    del junk
+    kb.reset_launches()
+    got = segment_sum_from_flags(vals, flags, cap, impl="cuda")
+    again = segment_sum_from_flags(vals, flags, cap, impl="cuda")
+    want = segment_sum_from_flags(vals, flags, cap, impl="torch")
+    torch.cuda.synchronize()
+    assert kb.LAUNCHES["segment_sum_from_flags"] == 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_voxel_map_update_auto_equals_torch(cuda_device, with_rgb):
+    """Several updates (decay, evictions, max_weight) with K1 equal the
+    plain path bit for bit after every update; one K1 launch and no host
+    sync per update."""
+    from pointcloud_stitching_tpu_torch.models import voxel_map as VM
+    rng = np.random.default_rng(95 + with_rgb)
+    kw = dict(decay=0.5, min_weight=0.3, max_weight=1.8)
+    auto = VM.VoxelMap.create(1 << 16, 0.01, with_rgb=with_rgb,
+                              device=cuda_device)
+    plain = VM.VoxelMap.create(1 << 16, 0.01, with_rgb=with_rgb,
+                               device=cuda_device)
+    a, b = (_map_clouds(rng, cuda_device, 20_000, with_rgb, s)
+            for s in (0.0, 0.3))
+    counts = []
+    for cloud in (a, a, a, b, b, b):
+        kb.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            auto = VM.voxel_map_update(auto, cloud, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert kb.LAUNCHES["segment_sum_from_flags"] == 1
+        plain = VM.voxel_map_update(plain, cloud, impl="torch", **kw)
+        for k in ("ijk", "sums", "weight", "leaf", "rgb_sums"):
+            x, y = getattr(auto, k), getattr(plain, k)
+            assert (x is None and y is None) or torch.equal(x, y), k
+        counts.append(int(auto.count()))
+    # cloud a's own voxels evict three updates after it was last seen
+    assert counts[-1] < counts[-2] and float(auto.weight.max()) <= 1.8
+
+
 def test_voxel_batched_flat_ids_never_decrease(cuda_device, monkeypatch):
     """The camera batch's flat K2 ids never decrease, with invalid points
     and with clouds of no valid point (the first, a middle one and the

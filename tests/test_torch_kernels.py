@@ -25,6 +25,13 @@ from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     segment_sum_from_flags, segment_sum_sorted)
 
 
+@pytest.fixture
+def rng():
+    """A fresh generator per test: the suite-wide one of conftest.py
+    would make each test's inputs depend on the tests that ran before."""
+    return np.random.default_rng(1234)
+
+
 def _segment_inputs(rng, n, n_int, n_f32, p_flag=0.3, lead_zero=3):
     """Sorted-segment inputs: boundary flags (the first rows unflagged,
     so they carry id -1 and drop) and [n, n_int + n_f32] values whose first

@@ -27,6 +27,13 @@ from pointcloud_stitching_tpu_torch.utils.types import DistortionModel
 from oracle import random_se3, synth_depth_frame
 
 
+@pytest.fixture
+def rng():
+    """A fresh generator per test: the suite-wide one of conftest.py
+    would make each test's inputs depend on the tests that ran before."""
+    return np.random.default_rng(1234)
+
+
 def t(a):
     return torch.tensor(np.asarray(a))
 

@@ -557,7 +557,7 @@ def test_stitch_cli_saves_clouds_and_tsdf(rig, tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,entry", [
-    (["--map-leaf", "0.05"], 5), (["--map-in", "m.npz"], 5),
+    (["--view-dir", "v"], 10), (["--view-every", "2"], 10),
     (["--drop-plane", "0.02"], 8), (["--publish-port", "9000"], 10),
     (["--view"], 10), (["--trace-dir", "t"], 10)])
 def test_stitch_cli_refuses_unported_flags(monkeypatch, argv, entry):
@@ -570,6 +570,51 @@ def test_stitch_cli_refuses_unported_flags(monkeypatch, argv, entry):
         stitch_cli.main(["--camera", "127.0.0.1:1"] + argv)
     assert e.value.code not in (0, None)
     assert f"ROADMAP §1 entry {entry}" in str(e.value.code)
+
+
+@time_limit(90)
+def test_stitch_cli_voxel_map_equals_direct_accumulation(rig, tmp_path,
+                                                         monkeypatch, capsys):
+    """--map-leaf/--map-out .npz over a few loopback frames saves the map a
+    direct TemporalAccumulator makes from direct pipeline calls on the same
+    frames (bit for bit); --map-in resumes it (resized, saved as .ply) and
+    refuses a rig whose colour does not match the checkpoint."""
+    from pointcloud_stitching_tpu_torch.models.voxel_map import (
+        TemporalAccumulator, load_map)
+    monkeypatch.setenv("PCS_PLATFORM", "cpu")
+    frames = [synthetic_frames(1, H, W, seed=s) for s in range(2)]
+    servers = [rig(f, codec=Codec.SNAPPY) for f in frames]
+    cams = sum((["--camera", f"127.0.0.1:{s.port}"] for s in servers), [])
+    base = cams + ["--height", str(H), "--width", str(W), "--frames", "4",
+                   "--print-every", "0"]
+    npz = str(tmp_path / "scene.npz")
+    stitch_cli.main(base + ["--map-leaf", "0.05", "--map-out", npz,
+                            "--map-decay", "0.9", "--map-capacity", "4096"])
+    assert "saved accumulated map (" in capsys.readouterr().out
+
+    cfg = StitchConfig(num_cameras=2, height=H, width=W)
+    i0 = Intrinsics.d435_default(width=W, height=H)
+    pipe = StitchingPipeline(cfg, i0.stack([i0]),
+                             np.tile(np.eye(4, dtype=np.float32), (2, 1, 1)),
+                             device="cpu")
+    depth = torch.from_numpy(np.stack([f[0] for f in frames]))
+    acc = TemporalAccumulator(capacity=4096, leaf=0.05, decay=0.9,
+                              device="cpu")
+    for _ in range(4):
+        acc.update(pipe(depth).cloud)
+    got = load_map(npz, device="cpu")
+    for k in ("ijk", "sums", "weight", "leaf"):
+        assert torch.equal(getattr(got, k), getattr(acc.state, k)), k
+    assert got.rgb_sums is None and int(got.count()) > 100
+
+    ply = str(tmp_path / "map.ply")
+    stitch_cli.main(base + ["--map-in", npz, "--map-capacity", "8192",
+                            "--map-out", ply])
+    assert f"to {ply}" in capsys.readouterr().out
+    xyz, _ = load_ply(ply)
+    assert len(xyz) >= int(got.count())
+    with pytest.raises(ValueError, match="without color"):
+        stitch_cli.main(base + ["--map-in", npz, "--color"])
 
 
 @time_limit(30)
