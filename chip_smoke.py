@@ -81,7 +81,15 @@ CUDA kernels on those paths:
      its plain version and timed (its own kernels entries); then
      ``detect_changes_map`` of the mapped and of the moved frame,
      ``localize`` of a moved cloud against the map and
-     ``reconstruct_surface`` of the map.
+     ``reconstruct_surface`` of the map;
+ 11. the registration extras on phase 7's clouds: ``estimate_normals``
+     against the frame's disc planes, the register CLI with
+     ``--fpfh-starts`` (also alone) and ``--gicp``, GICP per iteration,
+     ``ndt`` (K2 held bit for bit against its plain version on the map
+     build's own inputs, and the whole call against ``impl="torch"``),
+     ``graph_cli --ply-dir`` over the stream rig's 8 poses, each camera
+     with its own 1 mm noise (K2 held likewise on the batched voxel pass),
+     ``pick_cli --pairs`` into ``register_cli --picks``, ISS and VFH.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -309,14 +317,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/10 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/11 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/10 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/11 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -370,7 +378,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/10 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/11 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -637,7 +645,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/10 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/11 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -687,7 +695,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/10 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/11 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -713,7 +721,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/10 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/11 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -747,7 +755,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/10 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/11 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -758,6 +766,7 @@ def main() -> int:
     tsdf_phase(dev, kb, report, kernels, card)
     stream_phase(dev, kb, card)
     map_phase(dev, kb, report, kernels, card)
+    extras_phase(dev, kb, card)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -867,7 +876,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/10 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/11 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1261,7 +1270,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/10 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/11 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1561,7 +1570,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/10 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/11 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1843,7 +1852,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/10 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/11 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -1945,6 +1954,349 @@ def map_phase(dev, kb, report, kernels, card) -> None:
         f"{n_active} active cells in {t_mesh:.2f} s (stage ms, synced: "
         f"{ {k: round(v, 1) for k, v in stages.items()} })")
     say(f"    phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 11: the registration extras ---------------------------------------
+NORMAL_RADIUS = 0.05     # m: estimate_normals and register_cli --gicp's
+GRAPH_LEAF = 0.02        # m: graph_cli --voxel
+GRAPH_NOISE = 0.001      # m: each graph_cli camera's own sensor noise
+MAX_POSE_DEG = 0.25      # graph_cli: every pose within 5 mm and this angle
+
+
+def disc_plane_mask(xyz: np.ndarray, margin: float) -> np.ndarray:
+    """Points of ``oracle.synth_depth_frame(H, W, 0)`` (deprojected at the
+    flagship intrinsics) that lie on one of its 8 discs, the planes z = d
+    facing the camera, at least ``margin`` m inside the disc's rim and
+    outside every later (overwriting) disc's: their analytic normal is
+    (0, 0, -1). The discs are drawn again from the frame's seed."""
+    rng = np.random.default_rng(0)
+    discs = [(rng.uniform(0, W), rng.uniform(0, H),
+              rng.uniform(0.04, 0.14) * min(H, W), rng.uniform(600, 3200))
+             for _ in range(8)]
+    z = xyz[:, 2]
+    u = 421.5 * xyz[:, 0] / z + W / 2.0
+    v = 421.1 * xyz[:, 1] / z + H / 2.0
+    keep = np.zeros(len(xyz), bool)
+    for k, (cu, cv, r, d) in enumerate(discs):
+        dz = float(np.uint16(d)) * 0.001
+        m_px = margin * 421.5 / dz
+        on = ((np.abs(z - dz) < 1e-4)
+              & (np.hypot(u - cu, v - cv) < r - m_px))
+        for cu2, cv2, r2, _ in discs[k + 1:]:
+            on &= np.hypot(u - cu2, v - cv2) > r2 + m_px
+        keep |= on
+    return keep
+
+
+def run_cli(module: str, args) -> str:
+    """One of the port's CLIs run in this process through its ``main``, as
+    ``python -m`` runs it; returns what it printed."""
+    import contextlib
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = importlib.import_module(
+            f"pointcloud_stitching_tpu_torch.tools.{module}").main(
+                [str(a) for a in args])
+    check(rc in (None, 0), f"{module} exited with {rc}:\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def recording(module: str, name: str):
+    """Context manager: every call that ``module`` makes through its
+    global ``name`` goes on as before and its arguments are kept, so that
+    a kernel can be held against its plain version on exactly the inputs
+    an entry point gave it."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def cm():
+        mod = sys.modules[module]
+        real = getattr(mod, name)
+        calls = []
+
+        def rec(*a, **kw):
+            calls.append((a, kw))
+            return real(*a, **kw)
+
+        setattr(mod, name, rec)
+        try:
+            yield calls
+        finally:
+            setattr(mod, name, real)
+    return cm()
+
+
+def k2_on_calls(calls, tag: str) -> str:
+    """K2 on each recorded ``segment_sum_sorted(vals, seg, capacity)``:
+    'cuda' against 'torch' bit for bit, and against what the entry point
+    got; timed in turns. Returns the phase line's part."""
+    import torch
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import \
+        segment_sum_sorted
+    check(calls, f"{tag}: no segment_sum_sorted call recorded")
+    parts = []
+    for (v, s, c), _ in calls:
+        g = segment_sum_sorted(v, s, c, impl="cuda")
+        w = segment_sum_sorted(v, s, c, impl="torch")
+        torch.cuda.synchronize()
+        check(torch.equal(g, w), f"K2 {tag} {tuple(v.shape)} -> {c}: sums "
+              f"differ from plain by up to {(g - w).abs().max().item()}")
+        jumps = int((s[1:] - s[:-1] > 1).sum())
+        ms, pms, _ = time_in_turns(
+            lambda: segment_sum_sorted(v, s, c, impl="cuda"),
+            lambda: segment_sum_sorted(v, s, c, impl="torch"))
+        b_ms, _ = bound(nbytes(v, s, g), v.numel())
+        parts.append(f"{tuple(v.shape)} -> {c} slots ({jumps} id jumps, "
+                     f"{int((s == c - 1).sum())} rows in slot {c - 1}): "
+                     f"bitwise equal to plain, kernel "
+                     f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
+    return f"K2 ({tag}) " + "; ".join(parts)
+
+
+def synced_s(fn):
+    """(result, seconds) of one synced call."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def extras_phase(dev, kb, card) -> None:
+    """Phase 11: the registration extras at the registration cell's width
+    (phase 7's clouds, 113,301 points in 131,072 slots)."""
+    import tempfile
+
+    import torch
+    import oracle
+    from pointcloud_stitching_tpu_torch.io import (load_cal, project_pixels,
+                                                   projection_bounds,
+                                                   render_indexed, save_cal,
+                                                   save_ply)
+    from pointcloud_stitching_tpu_torch.ops import (estimate_normals, gicp,
+                                                    iss_keypoints, ndt, vfh)
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sc = registration_scene(dev)
+    src, dst, n_src, T_true = sc.src, sc.dst, sc.n_src, sc.T_true
+    valid = src.xyz[src.mask].cpu().numpy()
+
+    def point_err(T, T_ref) -> float:
+        got = oracle.transform_np(np.asarray(T, np.float32), valid)
+        return float(np.linalg.norm(
+            got - oracle.transform_np(T_ref, valid), axis=-1).max())
+
+    # (a) normals of both clouds; the discs' planes against (0, 0, -1)
+    (ns, oks), t_ns = synced_s(lambda: estimate_normals(src, NORMAL_RADIUS))
+    (nd, okd), t_nd = synced_s(lambda: estimate_normals(dst, NORMAL_RADIUS))
+    syncs_n = count_syncs(lambda: estimate_normals(src, NORMAL_RADIUS))
+    on_plane = disc_plane_mask(valid, NORMAL_RADIUS + 0.02)
+    m_src = src.mask.cpu().numpy()
+    check(on_plane.sum() > 1000, f"only {on_plane.sum()} disc points")
+    ok_np = oks.cpu().numpy()[m_src]
+    n_np = ns.cpu().numpy()[m_src]
+    check(ok_np[on_plane].all(), "a disc point has no normal")
+    dots = -n_np[on_plane, 2]
+    check(dots.min() > 0.9999, f"disc normals off by up to "
+          f"{np.degrees(np.arccos(dots.min())):.3f} deg")
+    R_true = oracle.random_se3(seed=3, max_angle=0.05,
+                               max_trans=0.05)[:3, :3]
+    want_d = np.array([0.0, 0.0, -1.0], np.float32) @ R_true.T
+    dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
+    check(dots_d.min() > 0.999, f"moved disc normals off by up to "
+          f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
+    say(f"[11/11 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+        f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
+        f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
+        f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
+        f"{np.degrees(np.arccos(min(dots.min(), 1.0))):.4f} deg of "
+        f"(0, 0, -1), moved within "
+        f"{np.degrees(np.arccos(min(dots_d.min(), 1.0))):.4f} deg")
+
+    T_glob = oracle.random_se3(seed=0, max_angle=2.0, max_trans=0.3)
+    dst_g = sc.moved(T_glob)
+    angle = np.degrees(np.arccos((np.trace(T_glob[:3, :3]) - 1) / 2))
+    with tempfile.TemporaryDirectory() as tmp:
+        sp, dp, dsp = (os.path.join(tmp, f) for f in ("s.ply", "g.ply",
+                                                       "d.ply"))
+        save_ply(sp, valid)
+        save_ply(dp, dst_g.xyz[dst_g.mask].cpu().numpy())
+        save_ply(dsp, dst.xyz[dst.mask].cpu().numpy())
+
+        # (b) register_cli --global with FPFH starts (the phase's counted
+        # run: every kernel launch of the CLI's process from here)
+        cal = os.path.join(tmp, "b.cal")
+        kb.reset_launches()
+        out_b, t_b = synced_s(lambda: run_cli("register_cli", [
+            sp, dp, cal, "--global", "--fpfh-starts", 64, "--prune"]))
+        launches = dict(kb.LAUNCHES)
+        T_b = load_cal(cal)
+        err_b = point_err(T_b, T_glob)
+        check(err_b < MAX_REG_ERR, f"--fpfh-starts 64 error {err_b} m")
+        for k in ("segment_sum_from_flags", "nn_batched_prepared",
+                  "nn_batched_prepared_ranged"):
+            check(launches.get(k, 0) > 0, f"(b) launched no {k}: {launches}")
+        _, t_b2 = synced_s(lambda: run_cli("register_cli", [
+            sp, dp, cal, "--global", "--starts", 1, "--fpfh-starts", 32,
+            "--prune"]))
+        err_b2 = point_err(load_cal(cal), T_glob)
+        check(err_b2 < MAX_REG_ERR, f"--starts 1 --fpfh-starts 32 error "
+              f"{err_b2} m")
+        icp_line = [ln for ln in out_b.splitlines() if ln.startswith("ICP")]
+        say(f"    (b) register_cli --global --fpfh-starts 64 --prune, "
+            f"{angle:.1f} deg misalignment: max point error "
+            f"{err_b * 1e3:.4f} mm, {t_b:.2f} s ({' '.join(icp_line)}); "
+            f"launches {launches}; --starts 1 --fpfh-starts 32 (FPFH "
+            f"starts alone): {err_b2 * 1e3:.4f} mm, {t_b2:.2f} s")
+
+        # (c) --gicp on top of (b), end to end; then GICP alone timed
+        out_c, t_c = synced_s(lambda: run_cli("register_cli", [
+            sp, dp, cal, "--global", "--fpfh-starts", 64, "--prune",
+            "--gicp", "--gicp-normal-radius", NORMAL_RADIUS]))
+        err_c = point_err(load_cal(cal), T_glob)
+        check(err_c < MAX_REG_ERR, f"--gicp error {err_c} m")
+        gline = [ln for ln in out_c.splitlines() if ln.startswith("GICP")]
+        T0 = torch.from_numpy(T_b).to(dev)
+        ng, okg = estimate_normals(dst_g, NORMAL_RADIUS)
+        # 10 iterations at epsilon 0 (from a converged pose GICP stops
+        # after one or two)
+        kw = dict(init_T=T0, max_iterations=10, transformation_epsilon=0.0)
+        g, t_g = synced_s(lambda: gicp(src, dst_g, ns, ng, oks, okg, **kw))
+        it_g = int(g.iterations)
+        syncs_g = count_syncs(lambda: gicp(src, dst_g, ns, ng, oks, okg,
+                                           **kw))
+        err_g = point_err(g.T.cpu().numpy(), T_glob)
+        say(f"    (c) register_cli ... --gicp: max point error "
+            f"{err_c * 1e3:.4f} mm, {t_c:.2f} s ({' '.join(gline)}); gicp "
+            f"from (b)'s pose, epsilon 0: {it_g} iterations, "
+            f"{t_g * 1e3 / max(it_g, 1):.2f} ms and "
+            f"{syncs_g / max(it_g, 1):.1f} host syncs per iteration, error "
+            f"{err_g * 1e3:.4f} mm")
+
+        # (d) NDT of the moved cloud (0.05 rad / 5 cm) from identity; K2
+        # then held against its plain version on the build's own inputs,
+        # and the whole entry point run again on the plain route
+        kb.reset_launches()
+        with recording("pointcloud_stitching_tpu_torch.ops.ndt",
+                       "segment_sum_sorted") as k2_ndt:
+            r, t_ndt = synced_s(lambda: ndt(src, dst, 0.5))
+        launches_ndt = dict(kb.LAUNCHES)
+        check(launches_ndt == {"segment_sum_sorted": 2},
+              f"ndt launches {launches_ndt}")
+        err_ndt = point_err(r.T.cpu().numpy(), T_true)
+        check(np.isfinite(err_ndt) and err_ndt < 0.02,
+              f"ndt error {err_ndt} m")
+        k2_line = k2_on_calls(k2_ndt, "ndt_build")
+        del k2_ndt
+        r_plain = ndt(src, dst, 0.5, impl="torch")
+        check(torch.equal(r.T, r_plain.T)
+              and int(r.iterations) == int(r_plain.iterations),
+              "ndt through K2 differs from ndt on the plain route")
+        say(f"    (d) ndt, 0.5 m cells, from identity: error "
+            f"{err_ndt * 1e3:.4f} mm (start "
+            f"{point_err(np.eye(4), T_true) * 1e3:.1f} mm), "
+            f"{int(r.iterations)} iterations, {t_ndt * 1e3:.1f} ms; "
+            f"launches {launches_ndt}; T bitwise equal to impl='torch'; "
+            f"{k2_line}")
+
+        # (f) pick_cli --pairs into register_cli --picks: four points that
+        # win their pixel in both orthographic views
+        dst_np = dst.xyz[dst.mask].cpu().numpy()
+        size = 800
+        seen = [np.unique(render_indexed(x, size=size)[1]) for x in
+                (valid, dst_np)]
+        both = np.intersect1d(seen[0][seen[0] >= 0], seen[1][seen[1] >= 0])
+        corners = [both[np.argmin(valid[both] @ np.array(d, np.float32))]
+                   for d in ((1, 1, 0), (-1, 1, 0), (1, -1, 0), (-1, -1, 0))]
+        spx = project_pixels(valid[corners], "z", size,
+                             projection_bounds(valid))
+        dpx = project_pixels(dst_np[corners], "z", size,
+                             projection_bounds(dst_np))
+        pairs = " ".join(f"{a},{b}:{c},{d}" for (a, b), (c, d)
+                         in zip(spx, dpx))
+        picks, cal_f = os.path.join(tmp, "picks.txt"), os.path.join(
+            tmp, "f.cal")
+        run_cli("pick_cli", [sp, dsp, picks, "--size", size, "--pairs",
+                             pairs, "--radius", 0])
+        got = np.loadtxt(picks, dtype=np.int64).reshape(-1, 2)
+        check(np.array_equal(got, np.stack([corners, corners], 1)),
+              f"pick_cli picked {got.tolist()}, want {corners}")
+        run_cli("register_cli", [sp, dsp, cal_f, "--picks", picks,
+                                 "--prune"])
+        err_f = point_err(load_cal(cal_f), T_true)
+        check(err_f < MAX_REG_ERR, f"pick -> register error {err_f} m")
+        say(f"    (f) pick_cli --pairs (4 corners, {size} px views) -> "
+            f"register_cli --picks --prune: picks {got[:, 0].tolist()}, "
+            f"max point error {err_f * 1e3:.4f} mm")
+
+        # (e) graph_cli --ply-dir over the stream rig's 8 poses. Phase 9's
+        # frames are 8 unrelated synthetic scenes (no shared geometry to
+        # register), so each camera sees this phase's scene instead: a
+        # random 70% of src's points with its own 1 mm sensor noise (no
+        # two cameras share a sample), in the camera's own frame
+        _, ext = stream_rig()
+        ply_dir, init_dir = (os.path.join(tmp, d) for d in ("ply", "init"))
+        os.makedirs(ply_dir)
+        os.makedirs(init_dir)
+        init = ext.copy()
+        for k in range(NCAM):
+            rng_k = np.random.default_rng(200 + k)
+            seen = rng_k.random(len(valid)) < 0.7
+            noisy = valid[seen] + rng_k.normal(
+                0.0, GRAPH_NOISE, (int(seen.sum()), 3)).astype(np.float32)
+            save_ply(os.path.join(ply_dir, f"cam_{k}.ply"),
+                     oracle.transform_np(np.linalg.inv(ext[k]), noisy))
+            if k:
+                init[k] = ext[k] @ oracle.random_se3(
+                    seed=100 + k, max_angle=0.02, max_trans=0.02)
+            save_cal(os.path.join(init_dir, f"cam_{k}.cal"), init[k])
+        edges = ([(i, (i + 1) % NCAM) for i in range(NCAM)]
+                 + [(i, i + 2) for i in range(0, NCAM - 2, 2)])
+        edges_file = os.path.join(tmp, "edges.txt")
+        with open(edges_file, "w") as f:
+            f.writelines(f"{i} {j}\n" for i, j in edges)
+        out_dir = os.path.join(tmp, "out")
+        kb.reset_launches()
+        with recording("pointcloud_stitching_tpu_torch.ops.voxel",
+                       "segment_sum_sorted") as k2_graph:
+            out_e, t_e = synced_s(lambda: run_cli("graph_cli", [
+                edges_file, out_dir, "--ply-dir", ply_dir, "--init-dir",
+                init_dir, "--voxel", GRAPH_LEAF, "--max-corr-dist", 0.1,
+                "--icp-iter", 30, "--iterations", 10]))
+        launches_e = dict(kb.LAUNCHES)
+        k2_line = k2_on_calls(k2_graph, "graph_cli --voxel")
+        del k2_graph
+        errs = [pose_error(load_cal(os.path.join(out_dir, f"cam_{k}.cal")),
+                           ext[k]) for k in range(NCAM)]
+        errs0 = [pose_error(init[k], ext[k]) for k in range(NCAM)]
+        e_t, e_r = max(e[0] for e in errs), max(e[1] for e in errs)
+        check(e_t < MAX_REG_ERR and e_r < MAX_POSE_DEG,
+              f"graph_cli poses off by up to {e_t} m / {e_r} deg")
+        say(f"    (e) graph_cli --ply-dir, {NCAM} cameras, {len(edges)} "
+            f"edges (ring + chords), --voxel {GRAPH_LEAF}: poses within "
+            f"{e_t * 1e3:.4f} mm / {e_r:.4f} deg (start "
+            f"{max(e[0] for e in errs0) * 1e3:.1f} mm / "
+            f"{max(e[1] for e in errs0):.3f} deg), {t_e:.2f} s; "
+            f"{out_e.splitlines()[0]}; launches {launches_e}; {k2_line}")
+
+    # (g) ISS keypoints and VFH of one cloud
+    leaf = sc.leaf
+    (kp, sal), t_iss = synced_s(lambda: iss_keypoints(
+        src, salient_radius=6 * leaf, non_max_radius=4 * leaf))
+    (desc, ok_v), t_vfh = synced_s(lambda: vfh(src, ns, oks))
+    check(0 < int(kp.sum()) < n_src and bool(ok_v)
+          and bool(torch.isfinite(desc).all()), "iss / vfh failed")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    say(f"    (g) iss_keypoints (salient {6 * leaf:.4f} m, non-max "
+        f"{4 * leaf:.4f} m): {int(kp.sum())} keypoints in "
+        f"{t_iss * 1e3:.1f} ms; vfh {t_vfh * 1e3:.2f} ms; peak memory "
+        f"{peak:.1f} MiB")
+    say(f"    phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

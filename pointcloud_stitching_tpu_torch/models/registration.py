@@ -10,8 +10,9 @@ polished at full resolution.
 
 ``kernel_impl`` ('auto' | 'cuda' | 'torch') routes every kernel of the
 path (K1 in the skeleton voxel pass, K3 in the multi-start ICP and the
-coarse NN pass, K4 in the pruned refinement). The FPFH-seeded starts of
-the JAX package (``fpfh_starts``) are not ported yet (ROADMAP item 12).
+coarse NN pass, K4 in the pruned refinement). ``fpfh_starts`` adds
+hypotheses seeded from FPFH descriptor matches (``ops.fpfh``), sampled
+with the caller's ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ import numpy as np
 import torch
 
 from ..io.calio import save_cal
+from ..ops.fpfh import fpfh, match_fpfh
 from ..ops.icp import ICPResult, icp_batched, icp_converge
 from ..ops.kabsch import kabsch
+from ..ops.mls import estimate_normals
 from ..ops.voxel import voxel_downsample
 from ..utils.types import PointCloud, scalar
 
@@ -129,6 +132,70 @@ def _basis_alignments() -> np.ndarray:
 _ALIGN24 = _basis_alignments()
 
 
+def _fpfh_features(cs: PointCloud, cd: PointCloud, leaf: float,
+                   k_corr: int = 8, normal_radius: Optional[float] = None,
+                   feature_radius: Optional[float] = None):
+    """FPFH descriptors of both skeletons and each source descriptor's
+    ``k_corr`` nearest target descriptors: (vs, vd, idx, md2).
+
+    Normals are estimated per cloud with the viewpoint at that cloud's own
+    origin: each cloud lives in its own sensor frame during calibration,
+    so orientation is consistent across the pair without the relative
+    pose."""
+    nr = 2.5 * leaf if normal_radius is None else normal_radius
+    fr = 5.0 * leaf if feature_radius is None else feature_radius
+    ns_, oks = estimate_normals(cs, nr)
+    nd_, okd = estimate_normals(cd, nr)
+    fs, vs = fpfh(cs, ns_, oks, radius=fr)
+    fd, vd = fpfh(cd, nd_, okd, radius=fr)
+    idx, md2 = match_fpfh(fs, vs, fd, vd, k=k_corr)      # [N, k_corr]
+    return vs, vd, idx, md2
+
+
+def _fpfh_hypotheses(cs: PointCloud, cd: PointCloud, feats,
+                     si: torch.Tensor, pick: torch.Tensor) -> torch.Tensor:
+    """Rigid hypotheses [S, 4, 4] from sampled source triples ``si`` [S, 3]
+    and the chosen match of each, ``pick`` [S, 3] in [0, k_corr): closed-form
+    Kabsch per triple, batched."""
+    vs, vd, idx, md2 = feats
+    si, pick = si.long(), pick.long()
+    di = idx[si, pick].long()                            # [S, 3]
+    # match_fpfh pads unmatched slots with index 0 and a ~1e12 sentinel
+    # distance: zero-weight those, or Kabsch would fit made-up pairs
+    matched = md2[si, pick] < 1e11
+    w = (vs[si] & vd[di] & matched).to(torch.float32)
+    return kabsch(cs.xyz[si], cd.xyz[di], w)
+
+
+def _fpfh_start_transforms(cs: PointCloud, cd: PointCloud,
+                           generator: torch.Generator, n_starts: int,
+                           leaf: float, k_corr: int = 8,
+                           normal_radius: Optional[float] = None,
+                           feature_radius: Optional[float] = None
+                           ) -> torch.Tensor:
+    """Descriptor-seeded rigid hypotheses [n_starts, 4, 4].
+
+    The correspondence half of ``pcl::SampleConsensusInitialAlignment``:
+    ``n_starts`` source triples drawn uniformly from the valid descriptors
+    (the JAX package's categorical over logits 0 / -1e9: with no valid
+    descriptor the draw stays uniform over all), each point matched to one
+    of its ``k_corr`` nearest target descriptors at random, then Kabsch.
+    The hypotheses join register_global's scoring pool, so a bad triple
+    simply loses. Draws come from ``generator`` on its own device.
+    """
+    feats = _fpfh_features(cs, cd, leaf, k_corr, normal_radius,
+                           feature_radius)
+    gdev = generator.device
+    logits = torch.where(feats[0], 0.0, -1e9)
+    si = torch.multinomial(torch.softmax(logits, 0).to(gdev), 3 * n_starts,
+                           replacement=True, generator=generator)
+    pick = torch.randint(0, k_corr, (n_starts, 3), generator=generator,
+                         device=gdev)
+    dev = cs.xyz.device
+    return _fpfh_hypotheses(cs, cd, feats, si.reshape(n_starts, 3).to(dev),
+                            pick.to(dev))
+
+
 def _centroid(pc: PointCloud, w: torch.Tensor) -> torch.Tensor:
     return (pc.xyz * w[:, None]).sum(dim=0) / torch.clamp(w.sum(), min=1.0)
 
@@ -142,7 +209,7 @@ def register_global(src: PointCloud, dst: PointCloud,
                     coarse_corr_dist: Optional[float] = None,
                     coarse_trim: float = 0.1,
                     refine: bool = True,
-                    fpfh_starts: int = 0,
+                    fpfh_starts: int = 0, fpfh_k_corr: int = 8,
                     kernel_impl: str = "auto",
                     query_tile: int = 512, ref_tile: int = 1024,
                     **refine_kw) -> RegistrationResult:
@@ -164,12 +231,11 @@ def register_global(src: PointCloud, dst: PointCloud,
     ignored (see ops.icp). With ``num_starts <= 25`` no random rotation is
     used. Like any
     geometry-only method it can lock onto a symmetry of the scene: check
-    ``icp.mean_error`` / ``num_inliers``.
+    ``icp.mean_error`` / ``num_inliers``. Where geometry alone is
+    ambiguous, ``fpfh_starts > 0`` appends that many FPFH-correspondence
+    hypotheses (``_fpfh_start_transforms``, each point matched among its
+    ``fpfh_k_corr`` nearest descriptors) to the same scoring pool.
     """
-    if fpfh_starts > 0:
-        raise NotImplementedError(
-            "fpfh_starts > 0: the FPFH-seeded starts (ops/fpfh.py, "
-            "estimate_normals) are not ported yet (ROADMAP item 12)")
     leaf = float(coarse_leaf)
     for _ in range(8):  # one host sync per try, as in the JAX package
         cs = voxel_downsample(src, leaf, capacity=coarse_capacity,
@@ -199,6 +265,10 @@ def register_global(src: PointCloud, dst: PointCloud,
     init_T = torch.eye(4, dtype=torch.float32, device=dev).repeat(m, 1, 1)
     init_T[:, :3, :3] = rot
     init_T[:, :3, 3] = t
+    if fpfh_starts > 0:
+        init_T = torch.cat([init_T, _fpfh_start_transforms(
+            cs, cd, generator, fpfh_starts, coarse_leaf, fpfh_k_corr)])
+        m = init_T.shape[0]
 
     bs = PointCloud(xyz=cs.xyz.expand(m, -1, -1), mask=cs.mask.expand(m, -1))
     bd = PointCloud(xyz=cd.xyz.expand(m, -1, -1), mask=cd.mask.expand(m, -1))

@@ -4,19 +4,20 @@
 Port of ``pointcloud_stitching_tpu/tools/register_cli.py`` (the
 reference's registration tool, adapted from PCL's manual_registration —
 SURVEY.md §3.4). Picks come from a correspondence file (or pure-ICP
-alignment with --no-picks, or none at all with --global):
+alignment with --no-picks, or none at all with --global, optionally with
+FPFH-seeded starts); --gicp finishes with plane-to-plane Generalized ICP:
 
   picks file: one "src_idx dst_idx" pair per line, >=3 lines.
 
 Usage:
   python -m pointcloud_stitching_tpu_torch.tools.register_cli \\
       src.ply dst.ply out.cal [--picks picks.txt] [--max-corr-dist 0.25] \\
-      [--max-iter 50] [--no-refine] [--prune] [--global]
+      [--max-iter 50] [--no-refine] [--prune] [--global [--fpfh-starts N]] \
+      [--gicp [--gicp-normal-radius 0.05]]
 
 The device comes from PCS_PLATFORM: unset or ``cuda`` runs on the first
 GPU (and fails without one), ``cpu`` runs the kernels' plain versions on
-the CPU. --gicp and --fpfh-starts are not ported yet (ROADMAP item 12) and
-exit with an error.
+the CPU.
 """
 from __future__ import annotations
 
@@ -41,8 +42,9 @@ def main(argv=None):
     ap.add_argument("--starts", type=int, default=64,
                     help="--global hypothesis count")
     ap.add_argument("--fpfh-starts", type=int, default=0,
-                    help="not ported yet (ROADMAP item 12): any value "
-                         "above 0 exits with an error")
+                    help="--global: extra hypotheses seeded from FPFH "
+                         "descriptor correspondences (SAC-IA role) — for "
+                         "scenes whose geometry alone is ambiguous")
     ap.add_argument("--coarse-leaf", type=float, default=0.05,
                     help="--global skeleton resolution (auto-coarsens "
                          "to fit)")
@@ -59,17 +61,12 @@ def main(argv=None):
     ap.add_argument("--voxel", type=float, default=None,
                     help="pre-downsample both clouds (meters)")
     ap.add_argument("--gicp", action="store_true",
-                    help="not ported yet (ROADMAP item 12): exits with an "
-                         "error")
+                    help="finish with plane-to-plane Generalized ICP "
+                         "(pcl::GeneralizedICP role): registers the "
+                         "surfaces rather than the sample positions")
     ap.add_argument("--gicp-normal-radius", type=float, default=0.05,
                     help="--gicp normal-estimation radius (meters)")
     args = ap.parse_args(argv)
-    if args.gicp:
-        sys.exit("--gicp: Generalized ICP (ops/gicp.py, estimate_normals) "
-                 "is not ported yet (ROADMAP item 12)")
-    if args.fpfh_starts > 0:
-        sys.exit("--fpfh-starts: the FPFH-seeded starts (ops/fpfh.py) are "
-                 "not ported yet (ROADMAP item 12)")
 
     import numpy as np
     import torch
@@ -102,6 +99,7 @@ def main(argv=None):
     if args.global_init:
         res = register_global(src, dst, torch.Generator().manual_seed(0),
                               num_starts=args.starts,
+                              fpfh_starts=args.fpfh_starts,
                               coarse_leaf=args.coarse_leaf,
                               refine=not args.no_refine,
                               max_iterations=args.max_iter,
@@ -123,6 +121,26 @@ def main(argv=None):
                             transformation_epsilon=args.epsilon,
                             max_corr_dist=args.max_corr_dist,
                             trim_fraction=args.trim, prune=args.prune)
+    if args.gicp:
+        # plane-to-plane polish on top of whichever initialisation ran
+        # (picks / identity / --global winner): the two scans never share
+        # sample sites exactly, their surfaces do
+        from pointcloud_stitching_tpu_torch.ops import (estimate_normals,
+                                                        gicp)
+        nr = args.gicp_normal_radius
+        ns, oks = estimate_normals(src, nr)
+        nd, okd = estimate_normals(dst, nr)
+        g = gicp(src, dst, ns, nd, oks, okd, init_T=res.T,
+                 max_iterations=args.max_iter,
+                 transformation_epsilon=args.epsilon,
+                 max_corr_dist=args.max_corr_dist,
+                 trim_fraction=args.trim)
+        print(f"GICP: {int(g.iterations)} iterations, "
+              f"mahalanobis={float(g.mean_error):.3e}, "
+              f"inliers={int(g.num_inliers)}", flush=True)
+        # res.icp keeps the first stage's stats (metres^2); the GICP
+        # residual above is Mahalanobis and prints under its own name
+        res = res._replace(T=g.T)
     if res.icp is not None:
         print(f"ICP: {int(res.icp.iterations)} iterations, "
               f"mean_error={float(res.icp.mean_error):.3e}, "

@@ -2,7 +2,7 @@
 
 The stitcher has no weights: its state is the camera intrinsics, the
 per-camera extrinsics and the config; the TSDF scene model's is its volume,
-the temporal voxel map's its slots.
+the temporal voxel map's its slots, an NDT map its cell table.
 The JAX side hands them over as numpy arrays (``np.asarray`` of each field)
 and these functions build the port's counterparts, so both sides compute
 the same thing. The config crosses as JSON through
@@ -69,3 +69,18 @@ def voxel_map_from_numpy(arrays: dict, device):
     if rgb is not None:
         rgb = torch.tensor(np.asarray(rgb, np.float32), device=device)
     return VoxelMap(**t, rgb_sums=rgb)
+
+
+NDT_FIELDS = {"keys": np.int32, "mu": np.float32, "inv_cov": np.float32,
+              "valid": np.bool_, "base": np.int32, "dims": np.int32,
+              "cell": np.float32}
+
+
+def ndt_map_from_numpy(arrays: dict, device):
+    """The port's ``NDTMap`` from a JAX map's arrays as numpy (``np.asarray``
+    of each of its fields), on ``device``: a map built by the JAX package
+    aligns clouds in the port."""
+    from ..ops.ndt import NDTMap
+    return NDTMap(**{k: torch.tensor(np.asarray(arrays[k], dt),
+                                     device=device)
+                     for k, dt in NDT_FIELDS.items()})

@@ -813,3 +813,129 @@ def test_stream_client_on_the_card(cuda_device, color):
             client.stop()
         for s in servers:
             s.stop()
+
+
+# --- the registration extras -------------------------------------------------
+
+def _bumps(seed, n):
+    """A smooth height field of Gaussian bumps (heterogeneous curvature)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1, 1, (n, 2))
+    z = np.zeros(n)
+    for c, a, s in zip(rng.uniform(-1, 1, (12, 2)), rng.uniform(-.25, .25, 12),
+                       rng.uniform(0.08, 0.3, 12)):
+        z += a * np.exp(-((xy - c) ** 2).sum(1) / (2 * s * s))
+    return np.concatenate([xy, z[:, None]], 1).astype(np.float32)
+
+
+def test_gicp_and_ndt_on_the_card_match_cpu(cuda_device):
+    """estimate_normals, gicp (K3 every iteration) and ndt_build (K2) +
+    ndt_align on the card against the port on the CPU: T within 1e-5,
+    iterations equal."""
+    from pointcloud_stitching_tpu_torch.ops import (estimate_normals, gicp,
+                                                    ndt_align, ndt_build)
+    xyz = _bumps(11, 1500)
+    T_true = random_se3(seed=3, max_angle=0.2, max_trans=0.05)
+    dst = (xyz @ T_true[:3, :3].T + T_true[:3, 3]).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        s = P.PointCloud.from_points(xyz, device=dev)
+        d = P.PointCloud.from_points(dst, device=dev)
+        ns, oks = estimate_normals(s, 0.15)
+        nd, okd = estimate_normals(d, 0.15)
+        kb.reset_launches()
+        g = gicp(s, d, ns, nd, oks, okd, max_corr_dist=0.5)
+        launches = dict(kb.LAUNCHES)
+        m = ndt_build(d, 0.2)
+        a = ndt_align(s.replace(xyz=s.xyz + 0.01), m)
+        res[str(dev)] = (g, a, launches, oks)
+    (gc, ac, lc, okc), (gg, ag, lg, okg) = res["cpu"], res[str(cuda_device)]
+    assert torch.equal(okc, okg.cpu())
+    np.testing.assert_allclose(gg.T.cpu().numpy(), gc.T.numpy(), atol=1e-5)
+    assert int(gg.iterations) == int(gc.iterations)
+    assert lg == {"nn_batched_prepared": int(gg.iterations)} and not lc
+    np.testing.assert_allclose(ag.T.cpu().numpy(), ac.T.numpy(), atol=1e-5)
+    assert int(ag.iterations) == int(ac.iterations)
+
+
+def test_ndt_build_kernel_route_equals_plain(cuda_device):
+    """ndt_build through K2 ('cuda') equals its plain route ('torch') on
+    the card bit for bit, invalid rows jumping to the catch-all slot."""
+    from pointcloud_stitching_tpu_torch.ops import ndt_build
+    xyz = _bumps(12, 3000)
+    mask = np.random.default_rng(12).random(3000) > 0.2
+    d = P.PointCloud(xyz=torch.from_numpy(xyz).to(cuda_device),
+                     mask=torch.from_numpy(mask).to(cuda_device))
+    kb.reset_launches()
+    got = ndt_build(d, 0.2, impl="cuda")
+    assert dict(kb.LAUNCHES) == {"segment_sum_sorted": 2}
+    want = ndt_build(d, 0.2, impl="torch")
+    for f in ("keys", "mu", "inv_cov", "valid"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_match_fpfh_holds_full_fp32_under_tf32(cuda_device):
+    """match_fpfh's cross term accumulates in float64, so TF32 switched on
+    process-wide leaves its indices equal to the CPU's."""
+    from pointcloud_stitching_tpu_torch.ops import match_fpfh
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.uniform(0, 100, (3000, 33)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(0, 100, (4000, 33)).astype(np.float32))
+    b[3000:3500] = b[:500]                        # exact ties
+    ok_a = torch.from_numpy(rng.random(3000) > 0.1)
+    ok_b = torch.from_numpy(rng.random(4000) > 0.1)
+    want = match_fpfh(a, ok_a, b, ok_b, k=4)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        got = match_fpfh(a.to(cuda_device), ok_a.to(cuda_device),
+                         b.to(cuda_device), ok_b.to(cuda_device), k=4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    assert torch.equal(got[0].cpu(), want[0])
+    # |a|^2 + |b|^2 ~ 2e5 is summed in float32 in another order on each
+    # device: d2 agrees to a few of its ulps (0.016 each)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                               atol=0.1)
+
+
+def test_pose_graph_holds_full_fp32_under_tf32(cuda_device):
+    """optimize_pose_graph solves in float64: with TF32 on and after
+    set_full_fp32_matmul it gives the same poses within 1e-6, and the
+    CPU's."""
+    from pointcloud_stitching_tpu_torch.models import optimize_pose_graph
+    from pointcloud_stitching_tpu_torch.utils.platform import (
+        set_full_fp32_matmul)
+    gt = np.stack([np.eye(4, dtype=np.float32)]
+                  + [random_se3(seed=k, max_angle=0.5, max_trans=1.0)
+                     for k in range(1, 6)])
+    edges = np.asarray([(i - 1, i) for i in range(1, 6)] + [(5, 0), (0, 3)],
+                       np.int32)
+    meas = np.stack([np.linalg.inv(gt[i]) @ gt[j] @ random_se3(
+        seed=40 + k, max_angle=0.02, max_trans=0.02)
+        for k, (i, j) in enumerate(edges)]).astype(np.float32)
+    init = np.stack([g @ random_se3(seed=60 + k, max_angle=0.05,
+                                    max_trans=0.05)
+                     for k, g in enumerate(gt)]).astype(np.float32)
+
+    def solve(dev):
+        return optimize_pose_graph(
+            torch.from_numpy(init).to(dev), torch.from_numpy(edges).to(dev),
+            torch.from_numpy(meas).to(dev), iterations=10).poses.cpu()
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        tf32 = solve(cuda_device)
+        set_full_fp32_matmul()
+        full = solve(cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    np.testing.assert_allclose(tf32.numpy(), full.numpy(), atol=1e-6)
+    np.testing.assert_allclose(full.numpy(), solve("cpu").numpy(), atol=1e-6)

@@ -349,8 +349,12 @@ def test_register_global_recovers_large_rotation():
                              coarse_leaf=0.08, coarse_capacity=512,
                              max_iterations=30)
     assert _max_point_err(res.T, T_true, xyz[:200]) < 0.005
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        PR.register_global(dst, dst, torch.Generator(), fpfh_starts=8)
+    # the FPFH-seeded starts run beside the identity start (they used to
+    # raise): a cloud against itself stays where it is
+    same = PR.register_global(dst, dst, torch.Generator().manual_seed(1),
+                              num_starts=1, fpfh_starts=8, coarse_leaf=0.08,
+                              coarse_capacity=512, max_iterations=30)
+    assert _max_point_err(same.T, np.eye(4), xyz[:200]) < 1e-5
 
 
 def test_pca_axes_right_handed_like_jax():
@@ -514,11 +518,22 @@ def test_register_cli_matches_jax_cli(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--gicp"], ["--fpfh-starts", "8"]])
 def test_register_cli_refuses_unported_flags(tmp_path, flag):
-    r = _port_cli("a.ply", "b.ply", str(tmp_path / "o.cal"), "--global",
-                  *flag)
-    assert r.returncode != 0
-    assert "ROADMAP item 12" in r.stderr
-    assert not (tmp_path / "o.cal").exists()
+    """The two flags the CLI refused until their modules were ported now
+    run end to end as a subprocess: a .cal within 5 mm of the pose. (The
+    name is the one this test had while it pinned the refusals.)"""
+    xyz, mask = _scene_cloud(seed=4)
+    xyz = xyz[mask]
+    T_true = random_se3(seed=6, max_angle=0.05, max_trans=0.03)
+    PIO.save_ply(str(tmp_path / "s.ply"), xyz)
+    PIO.save_ply(str(tmp_path / "d.ply"),
+                 transform_np(T_true, xyz).astype(np.float32))
+    r = _port_cli(str(tmp_path / "s.ply"), str(tmp_path / "d.ply"),
+                  str(tmp_path / "o.cal"), "--global", "--starts", "1",
+                  "--coarse-leaf", "0.08", *flag)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert ("GICP:" in r.stdout) == (flag[0] == "--gicp")
+    T = PIO.load_cal(str(tmp_path / "o.cal"))
+    assert _max_point_err(T, T_true, xyz[:200]) < 0.005
 
 
 def test_platform_device(monkeypatch):

@@ -243,8 +243,9 @@ def test_stitch_step_takes_the_reference_positional_order():
 def test_port_imports_no_jax():
     """The port must run where JAX is not installed: neither the package
     nor chip_smoke.py imports jax, flax or the JAX package. Every module of
-    the port (runtime, native codecs, metrics included) and chip_smoke.py
-    import in a process where importing any of those fails."""
+    the port (runtime, native codecs, metrics, the calibration tools
+    included) and chip_smoke.py import in a process where importing any of
+    those, or cv2 (which neither machine has), fails."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
                      r"pointcloud_stitching_tpu)\b")
     files = [os.path.join(REPO, "chip_smoke.py")] + [
@@ -259,7 +260,7 @@ def test_port_imports_no_jax():
                 assert not bad.match(line), (path, line)
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "pointcloud_stitching_tpu"):
+for name in ("jax", "jaxlib", "flax", "pointcloud_stitching_tpu", "cv2"):
     sys.modules[name] = None   # any import of these raises ImportError
 import pointcloud_stitching_tpu_torch as P
 names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
@@ -277,7 +278,9 @@ print(len(names))
     names = int(proc.stdout.split()[-1])
     assert names > 35
     for mod in ("runtime.client", "runtime.stitch_cli", "runtime.wire",
-                "native.snappy", "native.lzf", "utils.metrics"):
+                "native.snappy", "native.lzf", "utils.metrics", "ops.fpfh",
+                "ops.gicp", "ops.ndt", "models.pose_graph", "tools.graph_cli",
+                "tools.pick_cli"):
         assert os.path.exists(os.path.join(
             REPO, "pointcloud_stitching_tpu_torch",
             *mod.split(".")) + ".py"), mod
