@@ -10,8 +10,10 @@ save/load, raycast, track and the mesh CLI) at 4 x 848x480 into a 256^3
 volume, the streaming runtime (``runtime/``: fake camera servers, the
 pipelined client, the stitch CLI and the camera test) at 8 x 848x480, the
 temporal voxel map (``models.voxel_map``) at 2^20 slots with change
-detection, localization and the meshers, and checks the five hand-written
-CUDA kernels on those paths:
+detection, localization and the meshers, the registration extras and the
+analysis ops (plane RANSAC, filters, clusters, hulls, ``segment_cli`` and
+the stitch CLI's publisher, viewer and trace), and checks the five
+hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -89,7 +91,24 @@ CUDA kernels on those paths:
      build's own inputs, and the whole call against ``impl="torch"``),
      ``graph_cli --ply-dir`` over the stream rig's 8 poses, each camera
      with its own 1 mm noise (K2 held likewise on the batched voxel pass),
-     ``pick_cli --pairs`` into ``register_cli --picks``, ISS and VFH.
+     ``pick_cli --pairs`` into ``register_cli --picks``, ISS and VFH; K2's
+     library call (``index_add_``) timed beside it at both shapes;
+ 12. the analysis ops on phase 7's 113k-point cloud and the flagship's
+     262,144-slot output of phase 9's rig: (a) ``segment_plane`` (1024
+     hypotheses, 1 cm) on both, CUDA against CPU on the same draws, ms and
+     host syncs per call, and the plane of a window around the largest
+     disc against the disc; (b) ``stitch_cli --drop-plane 0.01`` (30
+     frames, in this process) against a run without the flag: every saved
+     cloud equal to a direct call, fps, p50/p99, K1/K3 launches; (g) one
+     ``stitch_cli --publish-port --view --trace-dir`` run with a
+     subscriber that must get every frame; (c) passthrough,
+     ``frustum_cull``, ROR and SOR timed at full size, held against a
+     numpy recount of sampled points there and against the CPU on a crop;
+     (d) ``euclidean_clusters`` CUDA against CPU, cluster boxes, and the
+     exact clusterers on a 2 cm skeleton against scipy's components of the
+     same graph (and the CPU on a crop); (e) support points, convex,
+     concave and crop hulls; (f) ``segment_cli --drop-plane --obb --hull``
+     on the card against the CPU, file for file.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -317,14 +336,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/11 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/12 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/11 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/12 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -378,7 +397,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/11 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/12 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -645,7 +664,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/11 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/12 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -695,7 +714,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/11 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/12 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -721,7 +740,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/11 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/12 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -755,7 +774,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/11 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/12 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -767,6 +786,7 @@ def main() -> int:
     stream_phase(dev, kb, card)
     map_phase(dev, kb, report, kernels, card)
     extras_phase(dev, kb, card)
+    analysis_phase(dev, kb, card)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -876,7 +896,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/11 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/12 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1270,7 +1290,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/11 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/12 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1570,7 +1590,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/11 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/12 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1852,7 +1872,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/11 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/12 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -1963,16 +1983,22 @@ GRAPH_NOISE = 0.001      # m: each graph_cli camera's own sensor noise
 MAX_POSE_DEG = 0.25      # graph_cli: every pose within 5 mm and this angle
 
 
+def synth_discs():
+    """The 8 discs of ``oracle.synth_depth_frame(H, W, 0)``, drawn again
+    from the frame's seed: (centre u, centre v, radius px, depth mm)."""
+    rng = np.random.default_rng(0)
+    return [(rng.uniform(0, W), rng.uniform(0, H),
+             rng.uniform(0.04, 0.14) * min(H, W), rng.uniform(600, 3200))
+            for _ in range(8)]
+
+
 def disc_plane_mask(xyz: np.ndarray, margin: float) -> np.ndarray:
     """Points of ``oracle.synth_depth_frame(H, W, 0)`` (deprojected at the
     flagship intrinsics) that lie on one of its 8 discs, the planes z = d
     facing the camera, at least ``margin`` m inside the disc's rim and
     outside every later (overwriting) disc's: their analytic normal is
-    (0, 0, -1). The discs are drawn again from the frame's seed."""
-    rng = np.random.default_rng(0)
-    discs = [(rng.uniform(0, W), rng.uniform(0, H),
-              rng.uniform(0.04, 0.14) * min(H, W), rng.uniform(600, 3200))
-             for _ in range(8)]
+    (0, 0, -1)."""
+    discs = synth_discs()
     z = xyz[:, 2]
     u = 421.5 * xyz[:, 0] / z + W / 2.0
     v = 421.1 * xyz[:, 1] / z + H / 2.0
@@ -2032,7 +2058,9 @@ def recording(module: str, name: str):
 def k2_on_calls(calls, tag: str) -> str:
     """K2 on each recorded ``segment_sum_sorted(vals, seg, capacity)``:
     'cuda' against 'torch' bit for bit, and against what the entry point
-    got; timed in turns. Returns the phase line's part."""
+    got; timed in turns, with the library call (``index_add_`` into
+    capacity + 1 rows, as phase 3 times it) beside. Returns the phase
+    line's part."""
     import torch
     from pointcloud_stitching_tpu_torch.kernels.segment_reduce import \
         segment_sum_sorted
@@ -2048,11 +2076,15 @@ def k2_on_calls(calls, tag: str) -> str:
         ms, pms, _ = time_in_turns(
             lambda: segment_sum_sorted(v, s, c, impl="cuda"),
             lambda: segment_sum_sorted(v, s, c, impl="torch"))
+        lib_out = torch.zeros((c + 1, v.shape[1]), dtype=torch.float32,
+                              device=v.device)
+        lib_ms = cuda_ms(lambda: lib_out.zero_().index_add_(0, s, v), 20)
         b_ms, _ = bound(nbytes(v, s, g), v.numel())
         parts.append(f"{tuple(v.shape)} -> {c} slots ({jumps} id jumps, "
                      f"{int((s == c - 1).sum())} rows in slot {c - 1}): "
                      f"bitwise equal to plain, kernel "
-                     f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b_ms:.4f} ms")
+                     f"{ms:.4f} ms, plain {pms:.4f} ms, index_add_ "
+                     f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms")
     return f"K2 ({tag}) " + "; ".join(parts)
 
 
@@ -2110,7 +2142,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/11 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/12 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2297,6 +2329,573 @@ def extras_phase(dev, kb, card) -> None:
         f"{t_iss * 1e3:.1f} ms; vfh {t_vfh * 1e3:.2f} ms; peak memory "
         f"{peak:.1f} MiB")
     say(f"    phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 12: the analysis ops ---------------------------------------------
+RANSAC_M = 1024          # hypotheses (segment_plane's default)
+PLANE_THR = 0.01         # m: segment_plane and both CLIs' --drop-plane
+DROP_FRAMES = 30         # stitch_cli runs of (b)
+G_FRAMES = 5             # the traced stitch_cli run of (g)
+G_VIEW_EVERY = 2
+CLUSTER_TOL = 0.05       # m: euclidean_clusters, the exact clusterers
+SKELETON_LEAF = 0.02     # m: the exact clusterers' skeleton
+SKELETON_CAP = 16384
+SMOOTH_DEG = 20.0        # region_growing
+FILTER_CROP = 8192       # slots of the crop both devices sweep in (c)
+CLUSTER_CROP = 2048      # slots of the crop both devices sweep in (d)
+SAMPLED = 256            # queries recounted with numpy at full size in (c)
+
+
+def cloud_to(pc, dev):
+    from pointcloud_stitching_tpu_torch import PointCloud
+    return PointCloud(xyz=pc.xyz.to(dev), mask=pc.mask.to(dev),
+                      rgb=None if pc.rgb is None else pc.rgb.to(dev))
+
+
+def plane_draws(mask, seed: int):
+    """RANSAC_M x 3 point indices drawn on the CPU from the valid slots:
+    the same draws for both devices."""
+    import torch
+    return torch.multinomial(mask.cpu().to(torch.float32), 3 * RANSAC_M,
+                             replacement=True,
+                             generator=torch.Generator().manual_seed(seed)
+                             ).view(RANSAC_M, 3)
+
+
+def component_labels(xyz, valid, tol, k, normals=None, cos_thr=None):
+    """Independent labels of the exact clusterers at full size: scipy's
+    connected components of the radius graph, each edge decided as the
+    port decides it in float32 (d2 summed x, y, z <= tol^2; with normals
+    |n_i . n_j| >= cos_thr), ranked by size, ties to the lower root (the
+    lowest index of a component), the top ``k`` labelled."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+    idx = np.nonzero(valid)[0]
+    p = xyz[idx]
+    pairs = cKDTree(p.astype(np.float64)).query_pairs(
+        float(tol) * (1 + 1e-4), output_type="ndarray")
+    d = p[pairs[:, 0]] - p[pairs[:, 1]]
+    keep = ((d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) + d[:, 2] * d[:, 2]
+            <= np.float32(tol) * np.float32(tol))
+    if normals is not None:
+        a, b = normals[idx[pairs[:, 0]]], normals[idx[pairs[:, 1]]]
+        keep &= np.abs((a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1])
+                       + a[:, 2] * b[:, 2]) >= cos_thr
+    e = pairs[keep]
+    g = coo_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])),
+                   shape=(len(idx), len(idx)))
+    _, comp = connected_components(g, directed=False)
+    sizes = np.bincount(comp)
+    root = np.full(len(sizes), len(xyz), np.int64)
+    np.minimum.at(root, comp, idx)
+    order = np.lexsort((root, -sizes))[:k]
+    rank = np.full(len(sizes), -1, np.int32)
+    rank[order] = np.arange(len(order), dtype=np.int32)
+    out = np.full(len(xyz), -1, np.int32)
+    out[idx] = rank[comp]
+    return out
+
+
+def disc_check(src, thr) -> str:
+    """segment_plane on a window around the largest visible disc of the
+    registration cloud (its pixels within 1.2 disc radii): the disc is
+    most of the window, so the plane must be the disc's, z = its depth.
+    On the whole cloud each disc holds a few percent of the points, which
+    RANSAC_M hypotheses rarely hit. Returns the phase line's part."""
+    import torch
+    from pointcloud_stitching_tpu_torch.ops import segment_plane
+    xyz = src.xyz.cpu().numpy()
+    valid = src.mask.cpu().numpy()
+    z = np.where(valid, xyz[:, 2], 1.0)
+    u = 421.5 * xyz[:, 0] / z + W / 2.0
+    v = 421.1 * xyz[:, 1] / z + H / 2.0
+    best = None
+    for cu, cv, r, dd in synth_discs():
+        dz = float(np.uint16(dd)) * 0.001
+        on = valid & (np.abs(z - dz) < 1e-4) & (np.hypot(u - cu, v - cv) < r)
+        if best is None or on.sum() > best[0].sum():
+            best = (on, cu, cv, r, dz)
+    on, cu, cv, r, dz = best
+    win = valid & (np.hypot(u - cu, v - cv) < 1.2 * r)
+    model, inl, cnt = segment_plane(
+        src.replace(mask=torch.from_numpy(win).to(src.xyz.device)), thr,
+        torch.Generator(device=src.xyz.device).manual_seed(0))
+    m = model.cpu().double().numpy()
+    tilt = float(np.degrees(np.arccos(min(abs(m[2]), 1.0))))
+    depth = -m[3] / m[2]
+    got = inl.cpu().numpy()
+    check(tilt < 0.5 and abs(depth - dz) < 1e-3 and got[on].all(),
+          f"(a) the window's plane is not the disc at {dz} m: tilt {tilt} "
+          f"deg, z = {depth}, {int(got[on].sum())} of {int(on.sum())} "
+          "disc points")
+    return (f"; in a window around the largest disc ({int(on.sum())} "
+            f"disc points of {int(win.sum())}) the plane is the disc: "
+            f"normal {tilt:.4f} deg off z, z = {depth:.5f} m against "
+            f"{dz:.3f}, every disc point an inlier ({int(cnt)} inliers)")
+
+
+def analysis_phase(dev, kb, card) -> None:
+    """Phase 12: the analysis ops on phase 7's 113k-point cloud and the
+    flagship's 262,144-slot output of phase 9's rig, and the stitch CLI's
+    remaining options on phase 9's loopback rig."""
+    import contextlib
+    import filecmp
+    import io
+    import socket
+    import tempfile
+    import threading
+
+    import torch
+    from pointcloud_stitching_tpu_torch import (Intrinsics, PointCloud,
+                                                StitchConfig,
+                                                StitchingPipeline)
+    from pointcloud_stitching_tpu_torch.io import load_ply, save_ply
+    from pointcloud_stitching_tpu_torch.ops import (
+        cluster_stats, concave_hull, convex_hull, crop_hull,
+        estimate_normals, euclidean_clusters, euclidean_clusters_exact,
+        extract_plane, frustum_cull, knn_mean_distance, oriented_bboxes,
+        passthrough, radius_outlier_removal, region_growing, segment_plane,
+        statistical_outlier_removal, voxel_downsample)
+    from pointcloud_stitching_tpu_torch.ops import hull as HL
+    from pointcloud_stitching_tpu_torch.ops import sac as SAC
+    from pointcloud_stitching_tpu_torch.runtime import (
+        Codec, FakeCameraServer, Kind, recv_frame, stitch_cli, wire)
+    from pointcloud_stitching_tpu_torch.runtime import publisher as PUB
+    from pointcloud_stitching_tpu_torch.tools import segment_cli
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    sc = registration_scene(dev)
+    src, n_src = sc.src, sc.n_src
+    src_cpu = cloud_to(src, cpu)
+    frames, ext = stream_rig()
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    pipe = StitchingPipeline(flagship_cfg(StitchConfig),
+                             i0.stack([i0] * (NCAM - 1)), ext, device=dev)
+    d_rig = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    flag = pipe(d_rig).cloud
+    del pipe
+
+    # (a) segment_plane on both clouds: the same draws on both devices,
+    # then the entry point on the card's own generator, timed
+    planes = {}
+    for tag, pc in (("113k", src), ("flagship", flag)):
+        idx = plane_draws(pc.mask, 0)
+        got = SAC._segment_plane_from_indices(pc, idx, PLANE_THR)
+        want = SAC._segment_plane_from_indices(cloud_to(pc, cpu), idx,
+                                               PLANE_THR)
+        m_err = float((got[0].cpu() - want[0]).abs().max())
+        check(m_err <= 1e-5, f"(a) {tag}: CUDA model differs from the "
+                             f"CPU's by {m_err}")
+        xyz64 = pc.xyz.cpu().double().numpy()
+        m64 = want[0].double().numpy()
+        dist = np.abs(xyz64 @ m64[:3] + m64[3])
+        edge = (np.abs(dist - PLANE_THR) < 1e-6) & pc.mask.cpu().numpy()
+        diff = (got[1].cpu() != want[1]).numpy()
+        check(not (diff & ~edge).any(), f"(a) {tag}: inlier masks differ "
+              f"at {int((diff & ~edge).sum())} points off the threshold")
+        gen = torch.Generator(device=dev)
+        run = lambda: segment_plane(pc, PLANE_THR,  # noqa: E731
+                                    gen.manual_seed(0))
+        model, inl, cnt = run()
+        ms = median_ms(run, 10)
+        syncs = count_syncs(run)
+        model_np = model.cpu().double().numpy()
+        resid = np.abs(xyz64 @ model_np[:3] + model_np[3])[
+            inl.cpu().numpy()]
+        check(int(cnt) > 100 and resid.max() <= PLANE_THR + 1e-6,
+              f"(a) {tag}: {int(cnt)} inliers, worst {resid.max()} m")
+        line = ""
+        if tag == "113k":
+            line = disc_check(pc, PLANE_THR)
+        planes[tag] = model
+        say(f"[12/12 analysis] {card}: (a) segment_plane {tag} "
+            f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
+            f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
+            f"all within the threshold{line}; {ms:.3f} ms per call "
+            f"(median of 10), {syncs} host syncs; on the same draws CUDA "
+            f"= CPU: model within {m_err:.2g}, inlier masks equal "
+            f"({int(edge.sum())} points within 1e-6 m of the threshold, "
+            f"{int(diff.sum())} differ)")
+
+    servers = [FakeCameraServer(f, codec=Codec.SNAPPY).start()
+               for f in frames]
+    cams = sum((["--camera", f"127.0.0.1:{srv.port}"] for srv in servers),
+               [])
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # (b) stitch_cli --drop-plane against a run without the flag,
+            # in this process (the launch counters are read around each)
+            base = cams + ["--height", str(H), "--width", str(W),
+                           "--frames", str(DROP_FRAMES), "--print-every",
+                           "0", "--save-every", "10"]
+            runs = {}
+            for tag, extra in (("without", []),
+                               ("--drop-plane", ["--drop-plane",
+                                                 str(PLANE_THR)])):
+                out = os.path.join(tmp, tag.strip("-"))
+                kb.reset_launches()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    m = stitch_cli.main(base + ["--save-dir", out] + extra)
+                torch.cuda.synchronize()
+                runs[tag] = (m, dict(kb.LAUNCHES), out)
+            # the reference: the CLI's pipeline (default config, nominal
+            # D435 intrinsics, identity poses) called directly
+            i_d = Intrinsics.d435_default(width=W, height=H, device=dev)
+            ref = StitchingPipeline(
+                StitchConfig(num_cameras=NCAM, height=H, width=W),
+                i_d.stack([i_d] * (NCAM - 1)),
+                np.tile(np.eye(4, dtype=np.float32), (NCAM, 1, 1)),
+                device=dev)(d_rig).cloud
+            model, _, cnt = segment_plane(
+                ref, PLANE_THR, torch.Generator(device=dev).manual_seed(0))
+            kept = extract_plane(ref, model, PLANE_THR)
+            wants = {"without": ref.xyz[ref.mask].cpu().numpy(),
+                     "--drop-plane": kept.xyz[kept.mask].cpu().numpy()}
+            parts = []
+            for tag, (m, launches, out) in runs.items():
+                plys = sorted(os.listdir(out))
+                check(len(plys) == DROP_FRAMES // 10, f"(b) {tag}: {plys}")
+                for f in plys:
+                    xyz, _ = load_ply(os.path.join(out, f))
+                    check(np.array_equal(xyz, wants[tag]),
+                          f"(b) {tag}: {f} differs from the direct call")
+                check(launches.get("segment_sum_from_flags") == DROP_FRAMES
+                      and launches.get("nn_batched_prepared")
+                      == 5 * DROP_FRAMES, f"(b) {tag}: launches {launches}")
+                parts.append(f"{tag}: fps {m.fps:.2f}, latency p50 "
+                             f"{m.latency_ms(50):.2f} p99 "
+                             f"{m.latency_ms(99):.2f} ms, {len(wants[tag])} "
+                             f"points saved, launches K1 "
+                             f"{launches.get('segment_sum_from_flags', 0)} K3 "
+                             f"{launches.get('nn_batched_prepared', 0)}")
+            check(runs["without"][1] == runs["--drop-plane"][1],
+                  "(b) --drop-plane changed the kernels' launches")
+            say(f"    (b) stitch_cli, {NCAM} x {H}x{W} snappy loopback, "
+                f"{DROP_FRAMES} frames, every saved cloud bitwise equal to "
+                f"the direct call (and segment_plane/extract_plane from a "
+                f"generator seeded 0, {int(cnt)} inliers): "
+                + "; ".join(parts))
+
+            # (g) --publish-port with a subscriber, --view into a directory
+            # (no display here) and --trace-dir, in one run; the publisher
+            # holds the first frame until the subscriber is in
+            with socket.socket() as so:
+                so.bind(("127.0.0.1", 0))
+                port = so.getsockname()[1]
+            got_frames, sub_err = [], []
+
+            def subscribe():
+                for _ in range(3000):
+                    try:
+                        conn = socket.create_connection(("127.0.0.1", port),
+                                                        timeout=30)
+                        break
+                    except ConnectionRefusedError:
+                        time.sleep(0.005)
+                else:
+                    sub_err.append("no publisher")
+                    return
+                with conn:
+                    while len(got_frames) < G_FRAMES:
+                        try:
+                            kind, _, payload = recv_frame(conn)
+                        except (ConnectionError, OSError, EOFError) as e:
+                            sub_err.append(repr(e))
+                            return
+                        if kind == Kind.POINTS_I16MM:
+                            got_frames.append(payload[0])
+
+            real_start = PUB.CloudPublisher.start
+
+            def start_and_wait(self):
+                real_start(self)
+                t_w = time.perf_counter()
+                while not self.num_subscribers:
+                    check(time.perf_counter() - t_w < 30,
+                          "(g) no subscriber came")
+                    time.sleep(0.002)
+                return self
+
+            sub = threading.Thread(target=subscribe, daemon=True)
+            sub.start()
+            view_dir, trace_dir = (os.path.join(tmp, x) for x in
+                                   ("view", "trace"))
+            PUB.CloudPublisher.start = start_and_wait
+            env_display = {k: os.environ.pop(k) for k in
+                           ("DISPLAY", "WAYLAND_DISPLAY") if k in os.environ}
+            try:
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    m = stitch_cli.main(
+                        cams + ["--height", str(H), "--width", str(W),
+                                "--frames", str(G_FRAMES), "--print-every",
+                                "0", "--save-dir", os.path.join(tmp, "g"),
+                                "--publish-port", str(port), "--view",
+                                "--view-dir", view_dir, "--view-every",
+                                str(G_VIEW_EVERY),
+                                "--trace-dir", trace_dir])
+                t_g = time.perf_counter() - t
+            finally:
+                PUB.CloudPublisher.start = real_start
+                os.environ.update(env_display)
+            sub.join(timeout=60)
+            check(not sub.is_alive() and not sub_err,
+                  f"(g) subscriber: {sub_err}")
+            packed, _ = wire.unpack_points_i16mm(
+                wire.pack_points_i16mm(wants["without"]))
+            check(len(got_frames) == G_FRAMES
+                  and all(np.array_equal(x, packed) for x in got_frames),
+                  f"(g) the subscriber got {len(got_frames)} frames, or "
+                  "one differs from the saved cloud")
+            images = sorted(os.listdir(view_dir))
+            check(len(images) == -(-G_FRAMES // G_VIEW_EVERY) + 1,
+                  f"(g) the view wrote {images}")
+            trace_file = os.path.join(trace_dir, "trace.json")
+            with open(trace_file) as f:
+                trace_text = f.read()
+            for kname in ("segsum_flags_kernel", "nn_batched_split"):
+                check(kname in trace_text, f"(g) the trace names no "
+                                           f"{kname}")
+            say(f"    (g) stitch_cli --publish-port --view --view-every "
+                f"{G_VIEW_EVERY} "
+                f"--trace-dir, {G_FRAMES} frames in {t_g:.1f} s (fps "
+                f"{m.fps:.2f} under the profiler): the subscriber got "
+                f"{len(got_frames)} of {G_FRAMES} frames, each the saved "
+                f"cloud in int16 mm ({len(packed)} points); the view wrote "
+                f"{len(images)} images ({images[0]} ... {images[-1]}); "
+                f"trace.json {os.path.getsize(trace_file) / 2**20:.1f} MiB "
+                f"names segsum_flags_kernel (K1) and nn_batched_split (K3)")
+    finally:
+        for srv in servers:
+            srv.stop()
+
+    # (c) filters on the 113k cloud
+    fr_i = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                             width=W, height=H)
+    cuts = {"passthrough": lambda pc: passthrough(pc, 2, 0.5, 2.0),
+            "frustum_cull": lambda pc: frustum_cull(
+                pc, fr_i if pc.xyz.device == cpu else fr_i.to(dev),
+                ext[0], z_min=0.3, z_max=3.0)}
+    parts = []
+    for name, fn in cuts.items():
+        got, t_f = synced_s(lambda: fn(src))
+        want = fn(src_cpu)
+        check(torch.equal(got.mask.cpu(), want.mask), f"(c) {name}: CUDA "
+                                                      "differs from CPU")
+        parts.append(f"{name} {int(got.mask.sum())} kept, "
+                     f"{t_f * 1e3:.2f} ms")
+    ror, t_ror = synced_s(lambda: radius_outlier_removal(src, 0.02, 4))
+    md, t_md = synced_s(lambda: knn_mean_distance(src, 16))
+    sor, t_sor = synced_s(lambda: statistical_outlier_removal(src, 16))
+    # full size: SAMPLED queries recounted with numpy (float32, the
+    # port's order), and the SOR threshold from md in float64
+    xyz = src.xyz.cpu().numpy()
+    valid = src.mask.cpu().numpy()
+    rows = np.random.default_rng(12).choice(np.nonzero(valid)[0], SAMPLED,
+                                            replace=False)
+    dq = xyz[rows][:, None, :] - xyz[None, valid, :]
+    d2 = (dq[..., 0] * dq[..., 0] + dq[..., 1] * dq[..., 1]) \
+        + dq[..., 2] * dq[..., 2]
+    counts = (d2 <= np.float32(0.02) * np.float32(0.02)).sum(1) - 1
+    check(np.array_equal(ror.mask.cpu().numpy()[rows], counts >= 4),
+          "(c) ROR differs from the recount at sampled points")
+    knn = np.sqrt(np.sort(d2, axis=1)[:, 1:17]).mean(1)
+    md_np = md.cpu().numpy()
+    md_err = float(np.abs(md_np[rows] - knn).max())
+    check(md_err <= 1e-6, f"(c) knn_mean_distance off by {md_err}")
+    mv = md_np[valid].astype(np.float64)
+    thr = mv.mean() + mv.std(ddof=1)
+    sor_np = sor.mask.cpu().numpy()
+    near = np.abs(md_np - thr) < 1e-6
+    check(np.array_equal(sor_np[~near], (valid & (md_np <= thr))[~near]),
+          "(c) SOR differs from its threshold away from it")
+    # both devices on a crop
+    crop = PointCloud(xyz=src.xyz[:FILTER_CROP], mask=src.mask[:FILTER_CROP])
+    crop_cpu = cloud_to(crop, cpu)
+    for name, fn in (("ROR", lambda pc: radius_outlier_removal(pc, 0.02, 4)),
+                     ("SOR", lambda pc: statistical_outlier_removal(pc,
+                                                                    16))):
+        check(torch.equal(fn(crop).mask.cpu(), fn(crop_cpu).mask),
+              f"(c) {name} on the crop: CUDA differs from CPU")
+    check(float((knn_mean_distance(crop, 16).cpu()
+                 - knn_mean_distance(crop_cpu, 16)).abs().max()) <= 1e-6,
+          "(c) knn_mean_distance on the crop: CUDA differs from CPU")
+    say(f"    (c) filters, {n_src} points: {'; '.join(parts)} (CUDA = CPU "
+        f"masks); ROR (0.02 m, 4) {int(ror.mask.sum())} kept, {t_ror:.3f} "
+        f"s; knn_mean_distance (16) {t_md:.3f} s; SOR (16, 1.0) "
+        f"{int(sor.mask.sum())} kept, {t_sor:.3f} s; at full size "
+        f"{SAMPLED} sampled points recounted with numpy: ROR equal, mean "
+        f"distances within {md_err:.2g}, SOR equal to its float64 threshold "
+        f"({int(near.sum())} points within 1e-6); on a {FILTER_CROP}-slot "
+        f"crop ROR, SOR and the mean distances CUDA = CPU")
+
+    # (d) clusters: the 113k cloud without its plane; the exact clusterers
+    # on its 2 cm skeleton
+    rest = extract_plane(src, planes["113k"], PLANE_THR)
+    rest_cpu = cloud_to(rest, cpu)
+    run = lambda: euclidean_clusters(rest, CLUSTER_TOL)  # noqa: E731
+    (lab, num, sizes), t_ec = synced_s(run)
+    ms_ec = median_ms(run, 5)
+    syncs_ec = count_syncs(run)
+    want = euclidean_clusters(rest_cpu, CLUSTER_TOL)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip((lab, num, sizes),
+                                                      want)),
+          "(d) euclidean_clusters: CUDA differs from CPU")
+    stats = cluster_stats(rest, lab)
+    obb = oriented_bboxes(rest, lab)
+    obb_cpu = oriented_bboxes(rest_cpu, lab.cpu())
+    st_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                 zip(stats, cluster_stats(rest_cpu, lab.cpu())))
+    ob_err = max(float((obb[i].cpu() - obb_cpu[i]).abs().max())
+                 for i in (0, 2))
+    ga, wa = obb[1].cpu(), obb_cpu[1]
+    sgn = torch.where((ga * wa).sum(-1, keepdim=True) < 0, -1.0, 1.0)
+    ax_err = float((ga * sgn - wa).abs().max())
+    check(max(st_err, ob_err, ax_err) <= 1e-5, f"(d) stats / OBB: CUDA "
+          f"differs from CPU by {st_err} / {ob_err} / {ax_err}")
+    skel = voxel_downsample(rest, SKELETON_LEAF, capacity=SKELETON_CAP)
+    n_skel = int(skel.count())
+    nrm, okn = estimate_normals(skel, 3 * SKELETON_LEAF)
+    # region_growing's threshold: cos of the float32 angle, on the host
+    cos_thr = np.float32(np.cos(np.float64(np.float32(np.radians(
+        SMOOTH_DEG)))))
+    exact = lambda: euclidean_clusters_exact(skel, CLUSTER_TOL)  # noqa
+    grow = lambda: region_growing(  # noqa: E731
+        skel, nrm, CLUSTER_TOL, float(np.radians(SMOOTH_DEG)),
+        normals_valid=okn)
+    res = {}
+    for name, fn in (("exact", exact), ("region_growing", grow)):
+        out, t_c = synced_s(fn)
+        syncs = count_syncs(fn)
+        res[name] = (out, t_c, syncs)
+    sk_xyz = skel.xyz.cpu().numpy()
+    sk_valid = skel.mask.cpu().numpy()
+    want_ex = component_labels(sk_xyz, sk_valid, CLUSTER_TOL, 16)
+    want_rg = component_labels(sk_xyz, sk_valid & okn.cpu().numpy(),
+                               CLUSTER_TOL, 16, nrm.cpu().numpy(),
+                               cos_thr)
+    for name, want_l in (("exact", want_ex), ("region_growing", want_rg)):
+        got_l = res[name][0][0].cpu().numpy()
+        check(np.array_equal(got_l, want_l), f"(d) {name}: labels differ "
+              f"from scipy's components at {int((got_l != want_l).sum())} "
+              "points")
+    cc = slice(0, CLUSTER_CROP)
+    sk_crop = PointCloud(xyz=skel.xyz[cc], mask=skel.mask[cc])
+    for name, fn in (
+            ("exact", lambda pc, nn, ok: euclidean_clusters_exact(
+                pc, CLUSTER_TOL)),
+            ("region_growing", lambda pc, nn, ok: region_growing(
+                pc, nn, CLUSTER_TOL, float(np.radians(SMOOTH_DEG)),
+                normals_valid=ok))):
+        g = fn(sk_crop, nrm[cc], okn[cc])
+        w = fn(cloud_to(sk_crop, cpu), nrm[cc].cpu(), okn[cc].cpu())
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(g, w)),
+              f"(d) {name} on the crop: CUDA differs from CPU")
+    say(f"    (d) euclidean_clusters ({CLUSTER_TOL} m) on the "
+        f"{int(rest.mask.sum())} points off the plane: {int(num)} clusters "
+        f"(sizes {sizes.cpu().tolist()[:int(num)]}), {ms_ec:.2f} ms "
+        f"(median of 5; first {t_ec * 1e3:.1f}), {syncs_ec} host syncs, "
+        f"CUDA = CPU; cluster_stats and OBBs CUDA = CPU within "
+        f"{max(st_err, ob_err, ax_err):.2g}; on the {n_skel}-point "
+        f"{SKELETON_LEAF} m skeleton: euclidean_clusters_exact "
+        f"{int(res['exact'][0][1])} clusters in "
+        f"{res['exact'][1] * 1e3:.1f} ms ({res['exact'][2]} syncs), "
+        f"region_growing ({SMOOTH_DEG} deg) {int(res['region_growing'][0][1])}"
+        f" regions in {res['region_growing'][1] * 1e3:.1f} ms "
+        f"({res['region_growing'][2]} syncs): both equal to scipy's "
+        f"components of the same graph; on a {CLUSTER_CROP}-slot crop CUDA "
+        f"= CPU")
+
+    # (e) hulls
+    dirs = torch.from_numpy(HL.fibonacci_directions(2048)).to(dev)
+    run = lambda: HL._support_indices(src.xyz, src.mask, dirs)  # noqa
+    si = run()
+    ms_si = median_ms(run, 10)
+    check(torch.equal(si.cpu(), HL._support_indices(
+        src_cpu.xyz, src_cpu.mask, dirs.cpu())),
+        "(e) _support_indices: CUDA differs from CPU")
+    h_ex, t_hex = synced_s(lambda: convex_hull(src, exact=True))
+    h_sup, t_hsup = synced_s(lambda: convex_hull(src))
+    check(0.95 * h_ex.volume <= h_sup.volume <= h_ex.volume * (1 + 1e-6),
+          f"(e) support hull {h_sup.volume} vs exact {h_ex.volume}")
+    inside = crop_hull(src, h_ex)
+    check(torch.equal(inside.mask.cpu(), crop_hull(src_cpu, h_ex).mask)
+          and int(inside.mask.sum()) == n_src,
+          "(e) crop_hull: CUDA differs from CPU, or drops a point")
+    outside = crop_hull(src, h_sup, invert=True)
+    check(torch.equal(outside.mask.cpu(),
+                      crop_hull(src_cpu, h_sup, invert=True).mask),
+          "(e) crop_hull (inverted): CUDA differs from CPU")
+    big = res["exact"][0][0] == 0
+    part = PointCloud.from_points(skel.xyz[big], device=dev)
+    ch, t_ch = synced_s(lambda: concave_hull(part, 3 * SKELETON_LEAF))
+    say(f"    (e) hulls of {n_src} points: _support_indices (2048 "
+        f"directions) {ms_si:.3f} ms, CUDA = CPU; convex exact "
+        f"{len(h_ex.vertex_ids)} vertices {h_ex.volume:.4f} m^3 in "
+        f"{t_hex:.3f} s, support-reduced {len(h_sup.vertex_ids)} vertices "
+        f"{h_sup.volume:.4f} m^3 in {t_hsup:.3f} s; crop_hull keeps all "
+        f"{n_src} points in the exact hull, {int(outside.mask.sum())} "
+        f"outside the support hull, CUDA = CPU; concave_hull (alpha "
+        f"{3 * SKELETON_LEAF} m) of the largest skeleton cluster "
+        f"({int(big.sum())} points): {len(ch.faces)} faces, "
+        f"{ch.volume * 1e3:.2f} L in {t_ch:.3f} s")
+
+    # (f) segment_cli on the 113k cloud, on the card and on the CPU, both
+    # drawing the same planes (from a CPU generator seeded per plane)
+    ops_mod = sys.modules["pointcloud_stitching_tpu_torch.ops"]
+    real_sp = ops_mod.segment_plane
+    draws = [0]
+
+    def same_draws(pc, threshold, generator, **kw):
+        idx = plane_draws(pc.mask, draws[0])
+        draws[0] += 1
+        return SAC._segment_plane_from_indices(pc, idx, threshold)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = os.path.join(tmp, "scene.ply")
+        save_ply(ply, xyz[valid])
+        outs = {}
+        ops_mod.segment_plane = same_draws
+        saved_env = os.environ.get("PCS_PLATFORM")
+        try:
+            for tag, plat in (("card", dev.type), ("cpu", "cpu")):
+                os.environ["PCS_PLATFORM"] = plat
+                draws[0] = 0
+                out = os.path.join(tmp, tag)
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    n_cl = segment_cli.main([ply, out, "--drop-plane",
+                                             str(PLANE_THR), "--obb",
+                                             "--hull"])
+                outs[tag] = (out, buf.getvalue(), time.perf_counter() - t,
+                             n_cl)
+        finally:
+            ops_mod.segment_plane = real_sp
+            if saved_env is None:
+                os.environ.pop("PCS_PLATFORM", None)
+            else:
+                os.environ["PCS_PLATFORM"] = saved_env
+        files = sorted(os.listdir(outs["card"][0]))
+        check(files and files == sorted(os.listdir(outs["cpu"][0])),
+              f"(f) segment_cli wrote {files} on the card, "
+              f"{sorted(os.listdir(outs['cpu'][0]))} on the CPU")
+        bad = [f for f in files if not filecmp.cmp(
+            os.path.join(outs["card"][0], f),
+            os.path.join(outs["cpu"][0], f), shallow=False)]
+        check(not bad, f"(f) segment_cli files differ: {bad}")
+        n_cl = outs["card"][3]
+        check(n_cl == outs["cpu"][3] and n_cl > 0, f"(f) {n_cl} clusters "
+              f"on the card, {outs['cpu'][3]} on the CPU")
+        say(f"    (f) segment_cli --drop-plane {PLANE_THR} --obb --hull "
+            f"on {n_src} points: {n_cl} clusters and {len(files) - n_cl} "
+            f"hulls, every file equal to the CPU run's; "
+            f"{outs['card'][2]:.2f} s on the card, {outs['cpu'][2]:.2f} s "
+            f"on the CPU; {outs['card'][1].splitlines()[1]}")
+    say(f"    phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

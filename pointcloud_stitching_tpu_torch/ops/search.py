@@ -30,6 +30,13 @@ def sum_sq(d: torch.Tensor) -> torch.Tensor:
     return (x * x + y * y) + z * z
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a . b over the last axis of [..., 3] (broadcast), summed x, y, z in
+    that order; elementwise, so TF32 matmuls do not touch it."""
+    return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) \
+        + a[..., 2] * b[..., 2]
+
+
 def smallest_k(d2: torch.Tensor, k: int, fill_idx: int = -1):
     """The ``k`` smallest of non-negative ``d2`` [n, m] per row, ascending,
     lower index first on ties: (d2 [n, k], idx [n, k] int32). Rows with

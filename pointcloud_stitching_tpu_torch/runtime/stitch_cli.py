@@ -8,41 +8,28 @@ pcs-multicamera-client). Flag parity (reference flag → here):
   -t timing                 → --timing (per-stage breakdown)
   -s save                   → --save-dir (PLY snapshot per --save-every)
   -d downsample             → --leaf / config
+  -v visualize              → --view (in-process) or --publish-port plus
+                              ``runtime.view_cli`` (decoupled)
 
 CLI:
   python -m pointcloud_stitching_tpu_torch.runtime.stitch_cli \\
       --camera 127.0.0.1:8000 --camera 127.0.0.1:8001 \\
       [--cal-dir cals/] [--config cfg.json] [--frames 300] \\
       [--save-dir out/ --save-every 30] [--tsdf-leaf 0.02] \\
-      [--map-leaf 0.01 --map-out scene.npz]
+      [--map-leaf 0.01 --map-out scene.npz] [--drop-plane 0.02] \\
+      [--publish-port 9000] [--view --view-dir viewer_out] [--trace-dir t/]
 
 The device comes from PCS_PLATFORM: unset or ``cuda`` runs on the first
 GPU (and fails without one), ``cpu`` runs the kernels' plain versions on
-the CPU. Flags whose modules are not ported yet exit with an error before
-any socket is opened: --drop-plane (plane segmentation, ROADMAP §1 entry
-8), --publish-port, --view* and --trace-dir (publisher, viewer and
-tracing, entry 10).
+the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
-import sys
 
 import numpy as np
-
-# unported flags: (argparse dest, flag, what is missing, ROADMAP entry)
-_UNPORTED = (
-    ("drop_plane", "--drop-plane", "plane segmentation (ops/sac.py)", 8),
-    ("publish_port", "--publish-port", "the cloud publisher "
-     "(runtime/publisher.py)", 10),
-    ("view", "--view", "the in-process viewer (runtime/view_cli.py)", 10),
-    ("view_dir", "--view-dir", "the in-process viewer", 10),
-    ("view_axis", "--view-axis", "the in-process viewer", 10),
-    ("view_size", "--view-size", "the in-process viewer", 10),
-    ("view_every", "--view-every", "the in-process viewer", 10),
-    ("trace_dir", "--trace-dir", "device tracing (utils/profiling.py)", 10),
-)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -141,34 +128,43 @@ def _parser() -> argparse.ArgumentParser:
                          "rigid-rig correction to all cameras")
     ap.add_argument("--tsdf-track-cam", type=int, default=0,
                     help="which camera anchors the frame-to-model track")
-    for dest, flag, what, entry in _UNPORTED:
-        kw = {"action": "store_true"} if flag == "--view" else {
-            "default": None}
-        ap.add_argument(flag, dest=dest,
-                        help=f"not ported yet ({what}, ROADMAP §1 entry "
-                             f"{entry}): exits with an error", **kw)
+    ap.add_argument("--drop-plane", type=float, default=None, metavar="DIST",
+                    help="segment the dominant plane each frame "
+                         "(pcl::SACSegmentation role) and drop points "
+                         "within DIST meters of it from every output")
+    ap.add_argument("--trace-dir",
+                    help="write a torch.profiler trace of the run "
+                         "(trace.json) into this directory")
+    ap.add_argument("--publish-port", type=int, default=None,
+                    help="serve the stitched cloud stream on this TCP port")
+    ap.add_argument("--view", action="store_true",
+                    help="render the stitched cloud in-process: a cv2 "
+                         "window when a GUI exists, else a rolling image "
+                         "sequence in --view-dir (keys: a/d/w/s orbit, 0 "
+                         "reset, n shade, p snapshot .ply, q close)")
+    ap.add_argument("--view-dir", default="viewer_out")
+    ap.add_argument("--view-axis", default="z", choices=("x", "y", "z"))
+    ap.add_argument("--view-size", type=int, default=800)
+    ap.add_argument("--view-every", type=int, default=1,
+                    help="render every K-th stitched frame")
     return ap
-
-
-def _refuse_unported(args) -> None:
-    for dest, flag, what, entry in _UNPORTED:
-        if getattr(args, dest) not in (None, False):
-            sys.exit(f"{flag}: {what} is not ported yet (ROADMAP §1 entry "
-                     f"{entry})")
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    _refuse_unported(args)
 
     import dataclasses
+
+    import torch
 
     from ..io.calio import (discover_cals, discover_intrinsics, load_cals,
                             load_intrinsics_stack)
     from ..io.plyio import save_cloud
     from ..models.stitcher import StitchingPipeline
     from ..utils.config import StitchConfig
+    from ..ops import extract_plane, segment_plane
     from ..utils.platform import platform_device, set_full_fp32_matmul
+    from ..utils.profiling import trace
     from ..utils.types import Intrinsics
     from .client import MulticameraClient
 
@@ -312,6 +308,65 @@ def main(argv=None):
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
 
+    publisher = None
+    if args.publish_port is not None:
+        from .publisher import CloudPublisher
+        publisher = CloudPublisher(port=args.publish_port).start()
+        print(f"publishing stitched clouds on :{publisher.port}", flush=True)
+
+    view = view_sink = None
+    snap_idx = 0   # --view 'p'-key snapshots
+    if args.view:
+        from .view_cli import CloudView, _directory_sink, _window_sink
+        # a --normals rig shades its normals by default ('n' toggles)
+        view = CloudView(axis=args.view_axis, size=args.view_size,
+                         shade_normals=cfg.with_normals)
+        view_sink = _window_sink()
+        if view_sink is None:
+            print(f"view: no GUI, writing image sequence to {args.view_dir}",
+                  flush=True)
+            view_sink = _directory_sink(args.view_dir, keep=300)
+
+    def close_view() -> None:
+        nonlocal view
+        view = None
+        try:
+            import cv2
+            cv2.destroyAllWindows()
+        except Exception:   # no cv2 or no GUI: nothing to close
+            pass
+
+    def show(i, out) -> None:
+        """Render one frame into the view sink and act on its key."""
+        nonlocal snap_idx
+        cmd = view_sink(i, view.render_cloud(out.cloud))
+        if cmd == "quit":
+            # q closes the in-process viewer; stitching goes on, as
+            # closing the reference's PCLVisualizer window does
+            close_view()
+        elif cmd == "snap":
+            # p saves the cloud that made this frame
+            path = os.path.join(args.view_dir,
+                                f"snapshot_{snap_idx:05d}.ply")
+            os.makedirs(args.view_dir, exist_ok=True)
+            save_cloud(path, out.cloud, decode_normals=cfg.with_normals)
+            snap_idx += 1
+            print(f"saved {path}", flush=True)
+        else:
+            view.apply_command(cmd)
+
+    drop_gen = None
+    if args.drop_plane is not None:
+        # one generator on the device, reseeded to 0 every frame: each
+        # frame's plane is deterministic (the JAX CLI uses one fixed key)
+        drop_gen = torch.Generator(device=dev)
+
+    def drop_plane(out):
+        model, _, _ = segment_plane(out.cloud, args.drop_plane,
+                                    drop_gen.manual_seed(0))
+        return out._replace(cloud=extract_plane(out.cloud, model,
+                                                args.drop_plane))
+
     map_on = args.map_leaf is not None or args.map_in is not None
     acc = None
 
@@ -404,10 +459,18 @@ def main(argv=None):
         tsdf_state["frames"] += 1
 
     def on_frame(i, out):
+        if drop_gen is not None:
+            # the plane's inliers leave everything downstream (save,
+            # publish, view, map)
+            out = drop_plane(out)
         if map_on:
             map_update(out)
         if tsdf_on and i % max(args.tsdf_every, 1) == 0:
             tsdf_keyframe(out)
+        if publisher is not None and publisher.num_subscribers:
+            publisher.publish_cloud(out.cloud)
+        if view is not None and i % max(args.view_every, 1) == 0:
+            show(i, out)
         if args.print_every and i > 0 and i % args.print_every == 0:
             line = str(client.metrics)
             if args.timing:
@@ -418,13 +481,17 @@ def main(argv=None):
                        out.cloud, decode_normals=cfg.with_normals)
 
     try:
-        metrics = client.run(num_frames=args.frames, on_frame=on_frame,
-                             fps=args.fps)
+        with (trace(args.trace_dir) if args.trace_dir
+              else contextlib.nullcontext()):
+            metrics = client.run(num_frames=args.frames, on_frame=on_frame,
+                                 fps=args.fps)
     except KeyboardInterrupt:
         metrics = client.metrics
     finally:
         # run() leaves the client started; the CLI is done with it
         client.stop()
+        if publisher is not None:
+            publisher.stop()
     if args.record_dir:
         paths = client.save_recording(args.record_dir)
         print(f"recorded {len(paths)} camera streams to {args.record_dir}")

@@ -939,3 +939,88 @@ def test_pose_graph_holds_full_fp32_under_tf32(cuda_device):
         torch.set_float32_matmul_precision(saved[1])
     np.testing.assert_allclose(tf32.numpy(), full.numpy(), atol=1e-6)
     np.testing.assert_allclose(full.numpy(), solve("cpu").numpy(), atol=1e-6)
+
+
+def _analysis_scene(seed=7, n=2048):
+    """Four blobs and a plane of clutter, a tenth masked (float32)."""
+    rng = np.random.default_rng(seed)
+    xyz = np.c_[rng.uniform(-1, 1, (n, 2)), rng.normal(0, 0.002, n)]
+    for c in range(4):
+        xyz[c * 200:(c + 1) * 200] = (rng.normal(0, 0.04, (200, 3))
+                                      + np.array([0.5 * c - 0.7, 0.3, 0.3]))
+    return (torch.from_numpy(xyz.astype(np.float32)),
+            torch.from_numpy(rng.random(n) > 0.1))
+
+
+def test_segment_plane_holds_full_fp32_under_tf32(cuda_device):
+    """segment_plane's products are elementwise and its refit runs in
+    float64: with TF32 switched on process-wide, the card's model, inliers
+    and count equal those with it off, and the CPU's model within 1e-6."""
+    from pointcloud_stitching_tpu_torch.ops import sac
+    xyz, mask = _analysis_scene()
+    idx = torch.multinomial(mask.float(), 3 * 256, replacement=True,
+                            generator=torch.Generator().manual_seed(1)
+                            ).view(256, 3)
+    pc = P.PointCloud(xyz=xyz, mask=mask)
+    pcg = P.PointCloud(xyz=xyz.to(cuda_device), mask=mask.to(cuda_device))
+    want = sac._segment_plane_from_indices(pc, idx, 0.01)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        tf32 = sac._segment_plane_from_indices(pcg, idx, 0.01)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        full = sac._segment_plane_from_indices(pcg, idx, 0.01)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    for a, b in zip(tf32, full):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(full[0].cpu().numpy(), want[0].numpy(),
+                               atol=1e-6)
+    assert torch.equal(full[1].cpu(), want[1])
+    assert int(full[2]) > 1000
+
+
+def test_analysis_ops_on_the_card_match_cpu(cuda_device):
+    """Filters, the three clusterers (scatter-min, stable sort,
+    searchsorted, the int64 ranking key), cluster boxes, support points and
+    crop_hull: the card equals the CPU on one scene."""
+    from pointcloud_stitching_tpu_torch import ops as O
+    from pointcloud_stitching_tpu_torch.ops import hull as HL
+    xyz, mask = _analysis_scene()
+    pc = P.PointCloud(xyz=xyz, mask=mask)
+    pcg = P.PointCloud(xyz=xyz.to(cuda_device), mask=mask.to(cuda_device))
+    for fn in (lambda c: O.radius_outlier_removal(c, 0.05, 4).mask,
+               lambda c: O.statistical_outlier_removal(c, 8).mask,
+               lambda c: O.euclidean_clusters(c, 0.05, min_size=5),
+               lambda c: O.euclidean_clusters_exact(c, 0.05, min_size=5),
+               lambda c: O.crop_hull(c, HL.convex_hull(pc)).mask):
+        got, want = fn(pcg), fn(pc)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a.cpu(), b)
+    nrm, ok = O.estimate_normals(pc, 0.1)
+    rg = [O.region_growing(c, nrm.to(c.xyz.device), 0.05, 0.3,
+                           normals_valid=ok.to(c.xyz.device))
+          for c in (pcg, pc)]
+    for a, b in zip(*rg):
+        assert torch.equal(a.cpu(), b)
+    lab = O.euclidean_clusters(pc, 0.05, min_size=5)[0]
+    for g, w in zip(O.cluster_stats(pcg, lab.to(cuda_device)),
+                    O.cluster_stats(pc, lab)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-6)
+    g = O.oriented_bboxes(pcg, lab.to(cuda_device))
+    w = O.oriented_bboxes(pc, lab)
+    for i in (0, 2):
+        np.testing.assert_allclose(g[i].cpu().numpy(), w[i].numpy(),
+                                   atol=1e-5)
+    sign = torch.where((g[1].cpu() * w[1]).sum(-1, keepdim=True) < 0, -1, 1)
+    np.testing.assert_allclose((g[1].cpu() * sign).numpy(), w[1].numpy(),
+                               atol=1e-5)
+    dirs = torch.from_numpy(HL.fibonacci_directions(1024))
+    assert torch.equal(
+        HL._support_indices(pcg.xyz, pcg.mask, dirs.to(cuda_device)).cpu(),
+        HL._support_indices(xyz, mask, dirs))

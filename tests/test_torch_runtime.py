@@ -9,6 +9,7 @@ limit of its own, so a socket that hangs fails the test instead of eating
 the suite's clock.
 """
 import functools
+import json
 import os
 import signal
 import socket
@@ -556,20 +557,131 @@ def test_stitch_cli_saves_clouds_and_tsdf(rig, tmp_path, monkeypatch, capsys):
     assert "saved TSDF volume (3 keyframes" in text and "stages(ms)" in text
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _subscribe(port: int, frames: int, got: dict):
+    """A StreamViewer thread that connects to the publisher on ``port`` as
+    soon as it listens and keeps the clouds of ``frames`` frames."""
+    from pointcloud_stitching_tpu_torch.runtime import StreamViewer
+
+    def run():
+        viewer = StreamViewer(("127.0.0.1", port), size=64)
+        clouds = []
+
+        def sink(i, img):
+            clouds.append(viewer._last_cloud)
+            return True
+
+        for _ in range(500):
+            try:
+                got["frames"] = viewer.run(sink, num_frames=frames)
+                got["clouds"] = clouds
+                return
+            except ConnectionRefusedError:
+                time.sleep(0.01)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+@time_limit(90)
 @pytest.mark.parametrize("argv,entry", [
     (["--view-dir", "v"], 10), (["--view-every", "2"], 10),
     (["--drop-plane", "0.02"], 8), (["--publish-port", "9000"], 10),
     (["--view"], 10), (["--trace-dir", "t"], 10)])
-def test_stitch_cli_refuses_unported_flags(monkeypatch, argv, entry):
-    """Flags whose modules are not ported exit non-zero, naming their
-    ROADMAP entry, before any socket is opened (port 1 is never tried)."""
+def test_stitch_cli_refuses_unported_flags(rig, tmp_path, monkeypatch,
+                                           argv, entry):
+    """Each flag this test once pinned as refused (its module was not
+    ported; ``entry`` is the ROADMAP §1 entry that ported it) now runs end
+    to end on a 2-camera loopback rig and has its effect: --view writes
+    the image sequence (no display here), --view-every renders every K-th
+    frame and acts on the window's p (snapshot) and q (close) keys,
+    --drop-plane saves clouds equal to a direct pipeline call followed by
+    segment_plane/extract_plane from a generator seeded 0, --publish-port
+    feeds a StreamViewer subscriber the saved cloud in int16 mm, and
+    --trace-dir writes a Chrome trace."""
+    from pointcloud_stitching_tpu_torch.ops import extract_plane, segment_plane
+    from pointcloud_stitching_tpu_torch.runtime import view_cli
     monkeypatch.setenv("PCS_PLATFORM", "cpu")
-    monkeypatch.setattr(MulticameraClient, "start", lambda self: pytest.fail(
-        "a socket was opened"))
-    with pytest.raises(SystemExit) as e:
-        stitch_cli.main(["--camera", "127.0.0.1:1"] + argv)
-    assert e.value.code not in (0, None)
-    assert f"ROADMAP §1 entry {entry}" in str(e.value.code)
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    monkeypatch.chdir(tmp_path)
+    frames = [synthetic_frames(1, H, W, seed=s) for s in range(2)]
+    servers = [rig(f, codec=Codec.SNAPPY) for f in frames]
+    nframes = 8
+    # a 16,384-slot output grid: the default 262,144 makes the CPU's plane
+    # search take seconds a frame
+    cfg = StitchConfig(num_cameras=2, height=H, width=W, out_capacity=16384)
+    cfg.save(str(tmp_path / "cfg.json"))
+    cli = sum((["--camera", f"127.0.0.1:{s.port}"] for s in servers), [])
+    cli += ["--config", "cfg.json", "--frames", str(nframes),
+            "--print-every", "0", "--save-dir", "clouds", "--save-every", "1"]
+    flag = argv[0]
+    calls, got, sub = [], {}, None
+    if flag == "--view-dir":
+        argv = ["--view", "--view-dir", str(tmp_path / "v"), "--view-size",
+                "128"]
+    elif flag == "--view":
+        argv = ["--view", "--view-size", "128"]
+    elif flag == "--view-every":
+        keys = {0: "snap", 2: "az+", 4: "quit"}
+
+        def sink(i, img):
+            calls.append((i, img.shape))
+            return keys.get(i, True)
+
+        monkeypatch.setattr(view_cli, "_window_sink", lambda: sink)
+        argv = ["--view", "--view-every", "2", "--view-size", "96",
+                "--view-dir", "snaps"]
+    elif flag == "--publish-port":
+        port = _free_port()
+        argv = ["--publish-port", str(port), "--fps", "20"]
+        sub = _subscribe(port, 3, got)
+    m = stitch_cli.main(cli + argv)
+    assert m.total_frames == nframes
+    saved = [load_ply(str(tmp_path / "clouds" / f"cloud_{i:06d}.ply"))[0]
+             for i in range(nframes)]
+    for xyz in saved[1:]:
+        np.testing.assert_array_equal(xyz, saved[0])   # static frames
+
+    if flag in ("--view-dir", "--view"):
+        d = tmp_path / ("v" if flag == "--view-dir" else "viewer_out")
+        names = sorted(os.listdir(d))
+        assert [x.split(".")[0] for x in names] == (
+            [f"frame_{i:05d}" for i in range(nframes)] + ["latest"])
+    elif flag == "--view-every":
+        # rendered at 0, 2, 4; q at 4 closed the view; p at 0 saved frame 0
+        assert calls == [(i, (96, 96, 3)) for i in (0, 2, 4)]
+        snap, _ = load_ply(str(tmp_path / "snaps" / "snapshot_00000.ply"))
+        np.testing.assert_array_equal(snap, saved[0])
+    elif flag == "--drop-plane":
+        i0 = Intrinsics.d435_default(width=W, height=H)
+        pipe = StitchingPipeline(cfg, i0.stack([i0]), np.tile(
+            np.eye(4, dtype=np.float32), (2, 1, 1)), device="cpu")
+        out = pipe(torch.from_numpy(np.stack([f[0] for f in frames])))
+        model, _, count = segment_plane(out.cloud, 0.02,
+                                        torch.Generator().manual_seed(0))
+        want = extract_plane(out.cloud, model, 0.02)
+        assert int(count) > 100
+        np.testing.assert_array_equal(saved[0], want.xyz[want.mask].numpy())
+        assert len(saved[0]) == int(out.cloud.mask.sum()) - int(count)
+    elif flag == "--publish-port":
+        sub.join(timeout=30)
+        assert not sub.is_alive() and got["frames"] == 3
+        packed = wire.unpack_points_i16mm(wire.pack_points_i16mm(saved[0]))
+        for xyz, rgb in got["clouds"]:
+            np.testing.assert_array_equal(xyz, packed[0])
+            assert rgb is None
+    else:
+        with open(tmp_path / "t" / "trace.json") as f:
+            trace = json.load(f)
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        assert "aten::sort" in names, sorted(names)[:20]
 
 
 @time_limit(90)

@@ -243,8 +243,9 @@ def test_stitch_step_takes_the_reference_positional_order():
 def test_port_imports_no_jax():
     """The port must run where JAX is not installed: neither the package
     nor chip_smoke.py imports jax, flax or the JAX package. Every module of
-    the port (runtime, native codecs, metrics, the calibration tools
-    included) and chip_smoke.py import in a process where importing any of
+    the port (runtime, native codecs, metrics, the calibration tools, the
+    analysis ops, the publisher, the viewer and profiling included) and
+    chip_smoke.py import in a process where importing any of
     those, or cv2 (which neither machine has), fails."""
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|"
                      r"pointcloud_stitching_tpu)\b")
@@ -280,7 +281,9 @@ print(len(names))
     for mod in ("runtime.client", "runtime.stitch_cli", "runtime.wire",
                 "native.snappy", "native.lzf", "utils.metrics", "ops.fpfh",
                 "ops.gicp", "ops.ndt", "models.pose_graph", "tools.graph_cli",
-                "tools.pick_cli"):
+                "tools.pick_cli", "ops.sac", "ops.cluster", "ops.hull",
+                "tools.segment_cli", "runtime.publisher", "runtime.view_cli",
+                "utils.profiling"):
         assert os.path.exists(os.path.join(
             REPO, "pointcloud_stitching_tpu_torch",
             *mod.split(".")) + ".py"), mod
