@@ -12,7 +12,8 @@ pipelined client, the stitch CLI and the camera test) at 8 x 848x480, the
 temporal voxel map (``models.voxel_map``) at 2^20 slots with change
 detection, localization and the meshers, the registration extras and the
 analysis ops (plane RANSAC, filters, clusters, hulls, ``segment_cli`` and
-the stitch CLI's publisher, viewer and trace), and checks the five
+the stitch CLI's publisher, viewer and trace) and the sharded port
+(``parallel/``) in worlds of 1 and 4 ranks, and checks the five
 hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
@@ -108,7 +109,21 @@ hand-written CUDA kernels on those paths:
      exact clusterers on a 2 cm skeleton against scipy's components of the
      same graph (and the CPU on a crop); (e) support points, convex,
      concave and crop hulls; (f) ``segment_cli --drop-plane --obb --hull``
-     on the card against the CPU, file for file.
+     on the card against the CPU, file for file;
+ 13. ``parallel/`` (the sharded stitch, the ring NN, the Z-slab TSDF) in
+     spawned worlds of ranks: one over NCCL on the card, and four over
+     gloo sharing it (NCCL refuses two ranks on one device; the
+     collectives stage through host memory). (a)/(b) both sharded
+     stitches at the flagship configurations, 10 frames in track mode:
+     each rank's K1/K2/K3 launches counted, 'auto' equal to 'torch' bit for
+     bit, the cloud equal to the unsharded step's fed the same extrinsics,
+     the extrinsics within 1e-4 of the unsharded step's, every rank's
+     output identical, the 4-rank world within 1e-4 of the 1-rank one;
+     (c) the ring NN on phase 7's clouds, d2 bit for bit unsharded K3's;
+     (d) the Z-slab integrate ('auto', K5 per slab) bit for bit the
+     unsharded 'dense' at a 2^-7 m leaf, and the sharded raycast; (e) ms
+     per sharded frame, the bytes crossing ranks and the collectives'
+     share of a frame, ms per sharded integrate and raycast.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -336,14 +351,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/12 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/13 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/12 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/13 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -397,7 +412,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/12 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/13 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -664,7 +679,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/12 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/13 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -714,7 +729,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/12 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/13 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -740,7 +755,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/12 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/13 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -774,7 +789,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/12 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/13 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -787,6 +802,7 @@ def main() -> int:
     map_phase(dev, kb, report, kernels, card)
     extras_phase(dev, kb, card)
     analysis_phase(dev, kb, card)
+    parallel_phase(dev, card, t_auto)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -896,7 +912,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/12 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/13 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1290,7 +1306,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/12 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/13 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1590,7 +1606,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/12 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/13 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1872,7 +1888,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/12 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/13 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -2142,7 +2158,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/12 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/13 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2511,7 +2527,7 @@ def analysis_phase(dev, kb, card) -> None:
         if tag == "113k":
             line = disc_check(pc, PLANE_THR)
         planes[tag] = model
-        say(f"[12/12 analysis] {card}: (a) segment_plane {tag} "
+        say(f"[12/13 analysis] {card}: (a) segment_plane {tag} "
             f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
             f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
             f"all within the threshold{line}; {ms:.3f} ms per call "
@@ -2896,6 +2912,558 @@ def analysis_phase(dev, kb, card) -> None:
             f"{outs['card'][2]:.2f} s on the card, {outs['cpu'][2]:.2f} s "
             f"on the CPU; {outs['card'][1].splitlines()[1]}")
     say(f"    phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
+# --- phase 13: the sharded port (parallel/) ----------------------------------
+SHARD_FRAMES = 10        # track-mode frames of each sharded stitch run
+SHARD_TIMED = 20         # frames of the timed runs (phase 6 times 20)
+SHARD_GLOO = 4           # ranks of the one-card world over gloo
+SHARD_LEAF = 2.0 ** -7   # m: the sharded TSDF's leaf; with the origin a
+SHARD_ORIGIN = (-1.0, -0.59375, 0.203125)   # multiple of it, slabs shift
+#                          exactly. Z slab 0 ([0.20, 0.70) m at 4 slabs)
+#                          holds no surface of TSDF_SCENE
+RANK_TIMEOUT_S = 300     # any collective of a rank
+WORLD_TIMEOUT_S = 420    # one world's whole run
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _median_ms(fn, n: int, dev) -> float:
+    """Median ms of ``n`` synced calls of ``fn`` (after one warm call)."""
+    fn()
+    _sync(dev)
+    ts = []
+    for _ in range(n):
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def _digest(*ts) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+SHARD_RUNS = (("shardmap", "1 cm", {}),
+              ("shardmap", "6 cm + cam pass",
+               dict(out_voxel_leaf=0.06, cam_voxel_enabled=True)),
+              ("sharded", "1 cm", {}),
+              ("sharded", "6 cm + cam pass",
+               dict(out_voxel_leaf=0.06, cam_voxel_enabled=True)))
+
+
+def _stitch_launches(kind: str, ov: dict, dev) -> dict:
+    """Launches per rank of SHARD_FRAMES frames of a SHARD_RUNS run: per
+    frame K2 once for the ICP pass and once for the camera pass (which
+    make_shardmap_stitch forces), K3 once per ICP iteration, K1 once; none
+    off the card."""
+    if dev.type != "cuda":
+        return {}
+    cam = kind == "shardmap" or bool(ov.get("cam_voxel_enabled"))
+    return {"segment_sum_sorted": (1 + int(cam)) * SHARD_FRAMES,
+            "nn_batched_prepared": 5 * SHARD_FRAMES,
+            "segment_sum_from_flags": SHARD_FRAMES}
+
+
+def _shard_stitch(dev, mesh, world: int, rank: int) -> list:
+    """(a)/(b): both sharded stitches at both flagship configurations, 10
+    frames in track mode from this rank's 8 / world cameras. Each run's
+    launches must be the path's (per frame K2 once for the ICP pass and
+    once for the camera pass, K3 5 times, K1 once); its last cloud must
+    equal the unsharded step's with ICP off fed its extrinsics, bit for
+    bit; 'torch' runs (every run in a world of 1, the 6 cm shard_map run
+    otherwise) must equal 'auto' bit for bit and launch nothing. In a
+    world of 1 the unsharded step runs the same 10 frames beside."""
+    import torch
+    from pointcloud_stitching_tpu_torch import (Intrinsics, StitchConfig,
+                                                stitch_step)
+    from pointcloud_stitching_tpu_torch.kernels import build as kb
+    from pointcloud_stitching_tpu_torch.parallel import (
+        collectives as C, make_sharded_stitch, make_shardmap_stitch)
+
+    ext_np, depths_np = flagship_scene()
+    depths = torch.from_numpy(depths_np).to(dev)
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i0.stack([i0] * (NCAM - 1))
+    intr_l, depths_l = C.local_rows(intr, mesh), C.local_rows(depths, mesh)
+    builders = {"shardmap": make_shardmap_stitch,
+                "sharded": make_sharded_stitch}
+    entries = []
+    for kind, tag, ov in SHARD_RUNS:
+        cam = kind == "shardmap" or bool(ov)
+        impls = ("auto", "torch") if world == 1 or (
+            kind == "shardmap" and ov) else ("auto",)
+        outs = {}
+        for impl in impls:
+            step = builders[kind](flagship_cfg(StitchConfig,
+                                               kernel_impl=impl, **ov), mesh)
+            ext = torch.from_numpy(ext_np).to(dev)
+            pts = []
+            kb.reset_launches()
+            C.reset_traffic()
+            for _ in range(SHARD_FRAMES):
+                out = step(intr_l, C.local_rows(ext, mesh), depths_l)
+                ext = out.extrinsics                       # track mode
+                pts.append(out.metrics.points_out)
+            _sync(dev)
+            outs[impl] = (out, dict(kb.LAUNCHES), sum(C.BYTES.values()),
+                          [int(p) for p in pts])
+        out, launches, nbytes_, pts = outs["auto"]
+        want = _stitch_launches(kind, ov, dev)
+        check(launches == want, f"{kind} {tag}, rank {rank}/{world}: "
+              f"launches {launches}, want {want}")
+        if "torch" in outs:
+            check(not outs["torch"][1], f"{kind} {tag}: 'torch' launched "
+                  f"{outs['torch'][1]}")
+            check(same_output(out, outs["torch"][0]),
+                  f"{kind} {tag}, rank {rank}/{world}: 'auto' differs from "
+                  "'torch'")
+        rest = {k: v for k, v in ov.items() if k != "cam_voxel_enabled"}
+        fed = stitch_step(flagship_cfg(StitchConfig, icp_enabled=False,
+                                       cam_voxel_enabled=cam, **rest),
+                          intr, out.extrinsics, depths)
+        check(torch.equal(fed.cloud.xyz, out.cloud.xyz)
+              and torch.equal(fed.cloud.mask, out.cloud.mask),
+              f"{kind} {tag}, rank {rank}/{world}: the cloud differs from "
+              "the unsharded step's fed the same extrinsics")
+        m = out.metrics
+        e = dict(kind=kind, tag=tag, launches=launches, pts=pts,
+                 bytes_per_frame=nbytes_ / SHARD_FRAMES,
+                 torch_equal="torch" in outs,
+                 digest=_digest(out.cloud.xyz, out.cloud.mask,
+                                out.extrinsics, m.points_in, m.points_out,
+                                m.icp_mean_error, m.icp_inliers,
+                                m.loop_error),
+                 ext=out.extrinsics.cpu().numpy(),
+                 cloud=(out.cloud.xyz[out.cloud.mask].cpu().numpy()
+                        if rank == 0 else None))
+        if world == 1:
+            cfg1 = flagship_cfg(StitchConfig, cam_voxel_enabled=cam, **rest)
+            ext1 = torch.from_numpy(ext_np).to(dev)
+            for _ in range(SHARD_FRAMES):
+                o1 = stitch_step(cfg1, intr, ext1, depths)
+                ext1 = o1.extrinsics
+            d = float((out.extrinsics - ext1).abs().max())
+            check(d <= ATOL_SLICE, f"{kind} {tag}: extrinsics {d} from the "
+                  "unsharded step's")
+            e.update(d_unsharded=d, pts_unsharded=int(o1.metrics.points_out))
+        entries.append(e)
+    return entries
+
+
+def _shard_ring(dev, mesh, world: int, rank: int) -> dict:
+    """(c): the ring NN over phase 7's clouds (131,072 x 131,072), this
+    rank's queries and reference shard; d2 bit for bit the unsharded K3's
+    on the same queries, K3 launched once per ring step."""
+    import torch
+    from pointcloud_stitching_tpu_torch.kernels import build as kb
+    from pointcloud_stitching_tpu_torch.ops import nearest_neighbors
+    from pointcloud_stitching_tpu_torch.parallel import (
+        collectives as C, ring_nearest_neighbors)
+
+    sc = registration_scene(dev)
+    q = C.local_rows(sc.src.xyz, mesh)
+    r, rm = C.local_rows(sc.dst.xyz, mesh), C.local_rows(sc.dst.mask, mesh)
+    kb.reset_launches()
+    C.reset_traffic()
+    idx, d2 = ring_nearest_neighbors(q, r, rm, mesh)
+    _sync(dev)
+    launches, nbytes_ = dict(kb.LAUNCHES), sum(C.BYTES.values())
+    want = {"nn_batched_prepared": world} if dev.type == "cuda" else {}
+    check(launches == want, f"ring NN rank {rank}/{world}: launches "
+          f"{launches}, want {want}")
+    ridx, rd2 = nearest_neighbors(q, sc.dst.xyz, sc.dst.mask)
+    check(torch.equal(d2, rd2), f"ring NN rank {rank}/{world}: d2 differs "
+          f"from unsharded K3 by {float((d2 - rd2).abs().max())}")
+    return dict(launches=launches, bytes=nbytes_,
+                agree=float((idx == ridx).float().mean()),
+                ms=_median_ms(lambda: ring_nearest_neighbors(q, r, rm, mesh),
+                              5, dev),
+                ms_unsharded=_median_ms(lambda: nearest_neighbors(
+                    q, sc.dst.xyz, sc.dst.mask), 5, dev))
+
+
+def _shard_tsdf(dev, zmesh, world: int, rank: int) -> dict:
+    """(d): phase 8's 4-camera scene into 256^3 at a 2^-7 m leaf in Z
+    slabs: two frames (the second without its last camera) of sharded
+    'auto' integrate (K5 on the slab's REFINE bricks; a camera with none
+    launches nothing) bit for bit the unsharded 'dense' one's slab,
+    without and with colour; the sharded raycast against the unsharded
+    one; times."""
+    import torch
+    from pointcloud_stitching_tpu_torch import Intrinsics
+    from pointcloud_stitching_tpu_torch.kernels import build as kb
+    from pointcloud_stitching_tpu_torch.kernels.patch_gather import (
+        patch_gather)
+    from pointcloud_stitching_tpu_torch.models import tsdf as TM
+    from pointcloud_stitching_tpu_torch.parallel import (
+        make_sharded_integrate, make_sharded_raycast, shard_volume)
+
+    i1 = Intrinsics.create(fx=TSDF_FX, fy=TSDF_FY, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i1.stack([i1] * (TSDF_NCAM - 1))
+    frames = [tuple(torch.from_numpy(a).to(dev) for a in tsdf_rig(k))
+              for k in range(2)]
+    # the second frame without its last camera (a camera that drops out):
+    # it has no REFINE brick in any slab, so its gathers are empty
+    frames[1][1][TSDF_NCAM - 1] = 0
+    color = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (TSDF_NCAM, H, W, 3), dtype=np.uint8)).to(dev)
+    zs = TSDF_GRID[2] // world
+    lo, hi = rank * zs, (rank + 1) * zs
+    integ = make_sharded_integrate(zmesh, method="auto")
+    res = {}
+    for with_rgb in (False, True):
+        full = TM.TSDFVolume.create(TSDF_GRID, SHARD_LEAF,
+                                    origin=SHARD_ORIGIN, with_rgb=with_rgb,
+                                    device=dev)
+        slab = shard_volume(full, zmesh)
+        col = color if with_rgb else None
+        kb.reset_launches()
+        with recording("pointcloud_stitching_tpu_torch.models.tsdf",
+                       "patch_gather") as calls:
+            for ext, depth in frames:
+                slab = integ(slab, depth, intr, ext, color=col)
+        _sync(dev)
+        k5 = kb.LAUNCHES.get("patch_gather", 0)
+        nonempty = [(a, kw) for a, kw in calls if a[1].shape[0] > 0]
+        check(k5 == (len(nonempty) if dev.type == "cuda" else 0),
+              f"TSDF rank {rank}/{world}: K5 launched {k5} times for "
+              f"{len(nonempty)} non-empty gathers of {len(calls)}")
+        for ext, depth in frames:
+            full = TM.integrate(full, depth, intr, ext, color=col,
+                                method="dense")
+        for f in ("tsdf", "weight") + (("rgb",) if with_rgb else ()):
+            check(torch.equal(getattr(slab, f), getattr(full, f)[:, :, lo:hi]),
+                  f"TSDF rank {rank}/{world}: sharded 'auto' {f} differs "
+                  "from unsharded 'dense'")
+        if nonempty and dev.type == "cuda":
+            a, kw = nonempty[0]
+            check(torch.equal(patch_gather(*a, impl="cuda"),
+                              patch_gather(*a, impl="torch")),
+                  f"TSDF rank {rank}/{world}: K5 differs from plain")
+        empty = len(calls) - len(nonempty)
+        check(empty > 0, f"TSDF rank {rank}/{world}: the dead camera's "
+              "gathers are not empty")
+        res["rgb" if with_rgb else "plain"] = dict(
+            k5=k5, gathers=len(calls), empty=empty, nonempty=len(nonempty),
+            bricks=[int(a[1].shape[0]) for a, _ in calls])
+        if not with_rgb:
+            plain_full, plain_slab = full, slab
+    ext0 = frames[0][0][0]
+    # the scene lies within 3 m of the rig: a shorter march than phase 8's
+    rcfn = make_sharded_raycast(zmesh, t_max=3.0, stride=2)
+    rc = rcfn(plain_slab, i1, ext0)
+    rf = TM.raycast(plain_full, i1, ext0, t_max=3.0, stride=2)
+    both = rc.valid & rf.valid
+    res.update(
+        rc_disagree=float((rc.valid != rf.valid).float().mean()),
+        rc_both=int(both.sum()),
+        rc_depth=float((rc.depth - rf.depth)[both].abs().max()),
+        ms_integrate=_median_ms(lambda: integ(plain_slab, frames[0][1], intr,
+                                              frames[0][0]), 5, dev),
+        ms_raycast=_median_ms(lambda: rcfn(plain_slab, i1, ext0), 5, dev))
+    check(res["rc_disagree"] < 0.01 and res["rc_both"] > 1000
+          and res["rc_depth"] <= 2e-3,
+          f"TSDF rank {rank}/{world}: raycast validity disagrees on "
+          f"{res['rc_disagree']:.4f}, depth by {res['rc_depth']}")
+    if world == 1:
+        res.update(ms_integrate_unsharded=_median_ms(lambda: TM.integrate(
+            plain_full, frames[0][1], intr, frames[0][0]), 5, dev),
+            ms_raycast_unsharded=_median_ms(lambda: TM.raycast(
+                plain_full, i1, ext0, t_max=3.0, stride=2), 5, dev))
+    return res
+
+
+def _shard_timing(dev, mesh, world: int) -> dict:
+    """(e): ms per frame of ``make_sharded_stitch`` at phase 6's flagship
+    configuration, the bytes that cross ranks per frame, and (in a run
+    whose collectives drain the device before and after) their share."""
+    import torch
+    import torch.distributed as dist
+    from pointcloud_stitching_tpu_torch import Intrinsics, StitchConfig
+    from pointcloud_stitching_tpu_torch.parallel import (
+        collectives as C, make_sharded_stitch)
+
+    ext_np, depths_np = flagship_scene()
+    depths = C.local_rows(torch.from_numpy(depths_np).to(dev), mesh)
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = C.local_rows(i0.stack([i0] * (NCAM - 1)), mesh)
+    step = make_sharded_stitch(flagship_cfg(StitchConfig), mesh)
+    state = {"ext": torch.from_numpy(ext_np).to(dev)}
+
+    def run(n: int) -> float:
+        _sync(dev)
+        dist.barrier()
+        t = time.perf_counter()
+        for _ in range(n):
+            state["ext"] = step(intr, C.local_rows(state["ext"], mesh),
+                                depths).extrinsics
+        _sync(dev)
+        return (time.perf_counter() - t) * 1e3 / n
+
+    run(3)
+    C.reset_traffic()
+    ms = run(SHARD_TIMED)
+    bytes_pf = sum(C.BYTES.values()) / SHARD_TIMED
+    C.reset_traffic()
+    with C.timed():
+        ms_timed = run(SHARD_FRAMES)
+    coll_ms = sum(C.SECONDS.values()) * 1e3 / SHARD_FRAMES
+    return dict(ms=ms, bytes_per_frame=bytes_pf, ms_timed=ms_timed,
+                coll_ms=coll_ms, coll_share=coll_ms / ms_timed,
+                seconds={k: v * 1e3 / SHARD_FRAMES
+                         for k, v in C.SECONDS.items()})
+
+
+def _shard_work(rank: int, world: int, backend: str, coordinator: str,
+                device: str) -> dict:
+    """One rank of a world: joins the process group through the port's
+    ``init_multihost`` and runs (a)/(b), (c), (d) and (e)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from pointcloud_stitching_tpu_torch.parallel import (init_multihost,
+                                                         make_mesh)
+    from pointcloud_stitching_tpu_torch.utils.platform import (
+        set_full_fp32_matmul)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # as torchrun would: platform_device() then names this rank's card
+        os.environ["LOCAL_RANK"] = str(dev.index)
+        torch.cuda.set_device(dev)
+        from pointcloud_stitching_tpu_torch.kernels import build as kb
+        kb.library()            # built by phase 2: loads, never compiles
+    set_full_fp32_matmul()
+    check(init_multihost(coordinator=coordinator, num_processes=world,
+                         process_id=rank, backend=backend,
+                         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S)),
+          "init_multihost did not initialize")
+    check(dist.get_backend() == backend, f"backend {dist.get_backend()}")
+    try:
+        mesh, zmesh = make_mesh(), make_mesh(axis="z")
+        t0 = time.perf_counter()
+        out = dict(stitch=_shard_stitch(dev, mesh, world, rank))
+        out["ring"] = _shard_ring(dev, mesh, world, rank)
+        out["tsdf"] = _shard_tsdf(dev, zmesh, world, rank)
+        out["timing"] = _shard_timing(dev, mesh, world)
+        out["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_rank(rank, world, backend, coordinator, device, queue) -> None:
+    """Process target: the rank's results (or its traceback) go to the
+    parent through ``queue``."""
+    import traceback
+    try:
+        queue.put((rank, "ok", _shard_work(rank, world, backend,
+                                           coordinator, device)))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def shard_world(backend: str, devices: list) -> list:
+    """Spawn one rank per entry of ``devices`` (torch.multiprocessing,
+    'spawn'; rank r computes on ``devices[r]``) joined over ``backend``;
+    returns their results in rank order. A failed rank raises here; every
+    rank is stopped before this returns."""
+    import queue as queue_mod
+    import socket
+
+    import torch.multiprocessing as mp
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    world = len(devices)
+    procs = [ctx.Process(target=_shard_rank,
+                         args=(r, world, backend, f"127.0.0.1:{port}",
+                               str(devices[r]), q), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    deadline = time.monotonic() + WORLD_TIMEOUT_S
+    try:
+        while len(results) < world:
+            try:
+                rank, status, payload = q.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue_mod.Empty:
+                raise AssertionError(
+                    f"world of {world} ({backend}): no result from ranks "
+                    f"{sorted(set(range(world)) - set(results))} within "
+                    f"{WORLD_TIMEOUT_S} s (exit codes "
+                    f"{[p.exitcode for p in procs]})") from None
+            check(status == "ok", f"world of {world} ({backend}): rank "
+                  f"{rank} failed:\n{payload}")
+            results[rank] = payload
+        for p in procs:
+            p.join(timeout=60)
+            check(p.exitcode == 0, f"world of {world}: a rank exited "
+                  f"with {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(world)]
+
+
+def one_card_worlds(dev) -> list:
+    """Phase 13's worlds on one card: (label, backend, devices) of a world
+    of 1 over NCCL and a world of SHARD_GLOO over gloo sharing the card
+    (the stand-in for a 4-GPU host; NCCL refuses two ranks on one
+    device). Off the card (a CPU rehearsal) both are gloo."""
+    one = "nccl" if dev.type == "cuda" else "gloo"
+    return [(one, one, [dev]),
+            ("gloo, one card, staged through host", "gloo",
+             [dev] * SHARD_GLOO)]
+
+
+def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
+    """Phase 13: ``parallel/`` at the flagship size in each of ``worlds``
+    (default ``one_card_worlds``); the first is the world of 1 that the
+    others are held against."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    specs = worlds or one_card_worlds(dev)
+    check(len(specs[0][2]) == 1, "the first world must have one rank")
+    results = [shard_world(backend, devs) for _, backend, devs in specs]
+    one = results[0][0]
+    labels = [f"world {len(devs)} ({label})" for label, _, devs in specs]
+
+    # each rank's launches, as the ranks counted them
+    for w, rs in enumerate(results):
+        for r, res in enumerate(rs):
+            for (kind, tag, ov), e in zip(SHARD_RUNS, res["stitch"]):
+                check(e["launches"] == _stitch_launches(kind, ov, dev),
+                      f"{labels[w]} rank {r} {kind} {tag}: launches "
+                      f"{e['launches']}")
+            check(res["ring"]["launches"] == (
+                {"nn_batched_prepared": len(rs)} if dev.type == "cuda"
+                else {}), f"{labels[w]} rank {r}: ring NN launches "
+                f"{res['ring']['launches']}")
+            for k in ("plain", "rgb"):
+                x = res["tsdf"][k]
+                check(x["k5"] == (x["nonempty"] if dev.type == "cuda"
+                                  else 0) and x["empty"] > 0,
+                      f"{labels[w]} rank {r}: K5 launched {x['k5']} times "
+                      f"for {x['nonempty']} non-empty gathers")
+
+    # (a) and (b): the stitch
+    for i, (kind, tag, _) in enumerate(SHARD_RUNS):
+        a = one["stitch"][i]
+        name = ("make_shardmap_stitch" if kind == "shardmap"
+                else "make_sharded_stitch")
+        say(f"[13/13 parallel] (a) {labels[0]} {card}: {name} "
+            f"{tag}: {SHARD_FRAMES} frames track mode, points_out "
+            f"{a['pts'][0]}..{a['pts'][-1]}; 'auto' == 'torch' bit for "
+            f"bit; |ext - stitch_step| {a['d_unsharded']:.3g} (points_out "
+            f"{a['pts_unsharded']}); cloud == stitch_step fed its "
+            f"extrinsics bit for bit; launches {a['launches']}")
+        for w, rs in enumerate(results[1:], 1):
+            rk = [r["stitch"][i] for r in rs]
+            check(len({e["digest"] for e in rk}) == 1,
+                  f"(b) {labels[w]} {kind} {tag}: the ranks' outputs differ")
+            b = rk[0]
+            d_ext = float(np.abs(b["ext"] - a["ext"]).max())
+            check(d_ext <= ATOL_SLICE, f"(b) {labels[w]} {kind} {tag}: "
+                  f"extrinsics {d_ext} from world 1's")
+            check(b["pts"] == a["pts"], f"(b) {labels[w]} {kind} {tag}: "
+                  f"points_out {b['pts']} against world 1's {a['pts']}")
+            d_cloud = float(np.abs(np.sort(b["cloud"], 0)
+                                   - np.sort(a["cloud"], 0)).max())
+            check(d_cloud <= ATOL_SLICE, f"(b) {labels[w]} {kind} {tag}: "
+                  f"sorted cloud {d_cloud} from world 1's")
+            say(f"    (b) {labels[w]}: every rank's output bit for bit the "
+                f"same (digest {b['digest']}); |ext - (a)| {d_ext:.3g}, "
+                f"|sorted cloud - (a)| {d_cloud:.3g}, points_out equal; "
+                f"cloud == stitch_step fed its extrinsics; launches per "
+                f"rank {[e['launches'] for e in rk]}"
+                + ("; 'auto' == 'torch' bit for bit on every rank"
+                   if b["torch_equal"] else "")
+                + f"; bytes crossing per frame per rank "
+                f"{b['bytes_per_frame']:.0f}")
+
+    # (c): the ring NN
+    for w, rs in enumerate(results):
+        c = [r["ring"] for r in rs]
+        say(f"    (c) ring NN 131072 x 131072, {labels[w]}: d2 == "
+            f"unsharded K3 bit for bit on every rank, idx agreement "
+            f"{min(x['agree'] for x in c):.6f}; K3 launches per rank "
+            f"{[x['launches'].get('nn_batched_prepared', 0) for x in c]}; "
+            f"{max(x['ms'] for x in c):.3f} ms per call (slowest rank), "
+            f"unsharded K3 on a rank's queries "
+            f"{max(x['ms_unsharded'] for x in c):.3f} ms; bytes received "
+            f"per rank {c[0]['bytes']}")
+
+    # (d): the TSDF
+    for w, rs in enumerate(results):
+        d = [r["tsdf"] for r in rs]
+        say(f"    (d) TSDF {TSDF_NCAM} x {H}x{W} into {TSDF_GRID} at "
+            f"{SHARD_LEAF} m, {labels[w]}, {len(rs)} Z slab(s): two "
+            f"frames of sharded 'auto' == unsharded 'dense' bit for bit, "
+            f"plain and colour; K5 launches per rank plain "
+            f"{[x['plain']['k5'] for x in d]} colour "
+            f"{[x['rgb']['k5'] for x in d]} (empty gathers skipped "
+            f"{[x['plain']['empty'] for x in d]} / "
+            f"{[x['rgb']['empty'] for x in d]}; bricks per depth gather "
+            f"{[x['plain']['bricks'][:TSDF_NCAM * 2] for x in d]}); "
+            f"raycast stride 2, to 3 m: "
+            f"validity disagrees on {max(x['rc_disagree'] for x in d):.5f}, "
+            f"|depth| {max(x['rc_depth'] for x in d):.3g} m on "
+            f"{d[0]['rc_both']} pixels; ms per sharded integrate "
+            f"{max(x['ms_integrate'] for x in d):.3f}, raycast "
+            f"{max(x['ms_raycast'] for x in d):.3f} (slowest rank)"
+            + (f"; unsharded 'auto' integrate "
+               f"{d[0]['ms_integrate_unsharded']:.3f}, raycast "
+               f"{d[0]['ms_raycast_unsharded']:.3f}" if w == 0 else ""))
+
+    # (e): times
+    parts = []
+    for w, rs in enumerate(results):
+        x = [r["timing"] for r in rs]
+        parts.append(
+            f"{labels[w]} {max(v['ms'] for v in x):.3f} ms per frame "
+            f"(slowest rank), bytes crossing ranks per frame "
+            f"{sum(v['bytes_per_frame'] for v in x):.0f} "
+            f"({x[0]['bytes_per_frame']:.0f} per rank), collectives "
+            f"{max(v['coll_ms'] for v in x):.3f} of "
+            f"{max(v['ms_timed'] for v in x):.3f} ms "
+            f"({100 * max(v['coll_share'] for v in x):.1f}%) in the run "
+            f"that drains around each ({x[0]['seconds']}); rank seconds "
+            f"{max(r['seconds'] for r in rs):.1f}")
+    say(f"    (e) times {card}: make_sharded_stitch at the flagship 1 cm "
+        f"config, {SHARD_TIMED} frames track mode: " + "; ".join(parts)
+        + f"; phase 6 unsharded {unsharded_ms:.3f} ms per frame")
+    say(f"    phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

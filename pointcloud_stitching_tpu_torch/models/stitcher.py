@@ -101,6 +101,30 @@ def _compose_ring_corrections(deltas: torch.Tensor, closure: bool,
     return mm(se3_power(residual, alphas), prefix), loop_err
 
 
+def _world_normals(normals: torch.Tensor,
+                   extrinsics: torch.Tensor) -> torch.Tensor:
+    """Voxel-averaged sensor-frame normals [ncam, C, 3] -> unit world-frame
+    normals (zero where the average is too short to trust)."""
+    norm = torch.linalg.norm(normals, dim=-1, keepdim=True)
+    n = torch.where(norm > 0.5, normals / torch.clamp(norm, min=1e-12), 0.0)
+    return torch.einsum("cij,cnj->cni", extrinsics[:, :3, :3], n)
+
+
+def _pair_icp(cfg: StitchConfig, src: PointCloud, dst: PointCloud,
+              dst_n: Optional[torch.Tensor]):
+    """One batched ICP over camera pairs: point-to-plane when the
+    destination normals are given, else point-to-point."""
+    if dst_n is not None:
+        return icp_point_to_plane_batched(
+            src, dst, dst_n, iterations=cfg.icp_iterations,
+            max_corr_dist=cfg.icp_max_corr_dist, nn_impl=cfg.kernel_impl,
+            trim_fraction=cfg.icp_trim_fraction)
+    return icp_batched(src, dst, iterations=cfg.icp_iterations,
+                       max_corr_dist=cfg.icp_max_corr_dist,
+                       nn_impl=cfg.kernel_impl,
+                       trim_fraction=cfg.icp_trim_fraction)
+
+
 def _ring_drift_correction(cfg: StitchConfig, clouds: PointCloud,
                            extrinsics: torch.Tensor):
     """Refine extrinsics by aligning each camera's ICP cloud to its ring
@@ -120,22 +144,11 @@ def _ring_drift_correction(cfg: StitchConfig, clouds: PointCloud,
         src = PointCloud(xyz=world.xyz[1:], mask=world.mask[1:])
         dst = PointCloud(xyz=world.xyz[:-1], mask=world.mask[:-1])
 
+    dst_n = None
     if cfg.icp_variant == "point_to_plane" and clouds.rgb is not None:
-        n = clouds.rgb                             # voxel-averaged normals
-        norm = torch.linalg.norm(n, dim=-1, keepdim=True)
-        n = torch.where(norm > 0.5, n / torch.clamp(norm, min=1e-12), 0.0)
-        R = extrinsics[:, :3, :3]
-        n_world = torch.einsum("cij,cnj->cni", R, n)
+        n_world = _world_normals(clouds.rgb, extrinsics)
         dst_n = torch.roll(n_world, 1, dims=0) if closure else n_world[:-1]
-        res = icp_point_to_plane_batched(
-            src, dst, dst_n, iterations=cfg.icp_iterations,
-            max_corr_dist=cfg.icp_max_corr_dist, nn_impl=cfg.kernel_impl,
-            trim_fraction=cfg.icp_trim_fraction)
-    else:
-        res = icp_batched(src, dst, iterations=cfg.icp_iterations,
-                          max_corr_dist=cfg.icp_max_corr_dist,
-                          nn_impl=cfg.kernel_impl,
-                          trim_fraction=cfg.icp_trim_fraction)
+    res = _pair_icp(cfg, src, dst, dst_n)
     if closure:
         deltas = res.T
         err, inl = res.mean_error[1:], res.num_inliers[1:]
@@ -147,6 +160,39 @@ def _ring_drift_correction(cfg: StitchConfig, clouds: PointCloud,
         deltas, closure, gate=cfg.icp_closure_gate,
         gate_rot=cfg.icp_closure_gate_rot)
     return mm(corrections, extrinsics), err, inl, loop_err
+
+
+def _world_clouds(cfg: StitchConfig, raw: PointCloud,
+                  extrinsics: torch.Tensor) -> PointCloud:
+    """Per-camera clouds [ncam, C, 3] in the world frame: the optional
+    per-camera voxel pass (K2), then SE(3); with_normals rotates the
+    normals in rgb and quantises them to 3x8 bits."""
+    clouds = raw
+    if cfg.cam_voxel_enabled:
+        clouds = voxel_downsample(clouds, cfg.cam_voxel_leaf,
+                                  capacity=cfg.cam_capacity,
+                                  impl=cfg.kernel_impl)
+    world = clouds.replace(xyz=se3_apply(extrinsics, clouds.xyz))
+    if cfg.with_normals and clouds.rgb is not None:
+        # normals rotate with the refined extrinsics, then quantise to
+        # 3x8-bit so the output voxel pass can take the packed branch
+        R = extrinsics[..., :3, :3]
+        nw = torch.einsum("cij,cnj->cni", R, clouds.rgb)
+        world = world.replace(
+            rgb=torch.clamp(torch.round((nw + 1.0) * 127.5), 0.0, 255.0))
+    return world
+
+
+def _fused_output(cfg: StitchConfig, world: PointCloud,
+                  out_leaf=None) -> PointCloud:
+    """Every camera's world cloud fused, cropped, and through the global
+    voxel pass (K1)."""
+    fused = fuse_batched(world)
+    if cfg.crop_lo is not None:
+        fused = crop_box(fused, cfg.crop_lo, cfg.crop_hi)
+    leaf = cfg.out_voxel_leaf if out_leaf is None else out_leaf
+    return voxel_downsample(fused, leaf, capacity=cfg.out_capacity,
+                            impl=cfg.kernel_impl)
 
 
 def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
@@ -164,57 +210,24 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
                                       impl=cfg.kernel_impl)
         extrinsics, icp_err, icp_inl, loop_err = _ring_drift_correction(
             cfg, icp_clouds, extrinsics)
-
-    clouds = raw
-    if cfg.cam_voxel_enabled:
-        clouds = voxel_downsample(clouds, cfg.cam_voxel_leaf,
-                                  capacity=cfg.cam_capacity,
-                                  impl=cfg.kernel_impl)
-    world = clouds.replace(xyz=se3_apply(extrinsics, clouds.xyz))
-    if cfg.with_normals and clouds.rgb is not None:
-        # normals rotate with the refined extrinsics, then quantise to
-        # 3x8-bit so the output voxel pass can take the packed branch
-        R = extrinsics[..., :3, :3]
-        nw = torch.einsum("cij,cnj->cni", R, clouds.rgb)
-        world = world.replace(
-            rgb=torch.clamp(torch.round((nw + 1.0) * 127.5), 0.0, 255.0))
-    fused = fuse_batched(world)
-    if cfg.crop_lo is not None:
-        fused = crop_box(fused, cfg.crop_lo, cfg.crop_hi)
-    leaf = cfg.out_voxel_leaf if out_leaf is None else out_leaf
-    out = voxel_downsample(fused, leaf, capacity=cfg.out_capacity,
-                           impl=cfg.kernel_impl)
+    out = _fused_output(cfg, _world_clouds(cfg, raw, extrinsics), out_leaf)
     metrics = StitchMetrics(points_in=points_in, points_out=out.count(),
                             icp_mean_error=icp_err, icp_inliers=icp_inl,
                             loop_error=loop_err)
     return StitchOutput(cloud=out, extrinsics=extrinsics, metrics=metrics)
 
 
-def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
-                depths: torch.Tensor, colors: Optional[torch.Tensor] = None,
-                cam_mask: Optional[torch.Tensor] = None,
-                color_intr: Optional[Intrinsics] = None,
-                color_ext: Optional[torch.Tensor] = None,
-                out_leaf=None) -> StitchOutput:
-    """One full stitching step; a pure function of its inputs. The
-    positional order is the JAX package's.
-
-    Args:
-      cfg: configuration.
-      intr: camera-batched Intrinsics on the depths' device.
-      extrinsics: [ncam, 4, 4] camera→world transforms.
-      depths: [ncam, H, W] uint16 raw depth.
-      colors: optional [ncam, H, W, 3] uint8 depth-aligned colour — or,
-        with color_intr, [ncam, Hc, Wc, 3] colour at its own resolution.
-      cam_mask: optional [ncam] bool — False drops a camera.
-      color_intr/color_ext: optional colour-stream Intrinsics and [ncam, 4,
-        4] depth→colour extrinsics (identity when None): colour attaches by
-        projecting each point into the colour camera (``map_color``).
-      out_leaf: optional 0-d tensor overriding cfg.out_voxel_leaf.
-    """
-    ncam = cfg.num_cameras
-    if depths.shape[0] != ncam:
-        raise ValueError(f"depths has {depths.shape[0]} cameras, cfg {ncam}")
+def _prepare(cfg: StitchConfig, intr: Intrinsics, depths: torch.Tensor,
+             colors: Optional[torch.Tensor] = None,
+             cam_mask: Optional[torch.Tensor] = None,
+             color_intr: Optional[Intrinsics] = None,
+             color_ext: Optional[torch.Tensor] = None):
+    """The step's per-camera front half, on any number of cameras (the
+    sharded step runs it on a rank's rows): decimation, deprojection (with
+    colour), the camera mask, full-resolution normals (with_normals) and
+    the ICP cloud's grid-stride subsample (+ grid normals). Returns (raw,
+    sub), both [n, P, 3] (+mask, +rgb)."""
+    n = depths.shape[0]
     if colors is not None and cfg.with_normals:
         # both ride the rgb channel: the normals would overwrite the colour
         raise ValueError("stitch_step got a colors array but "
@@ -247,30 +260,59 @@ def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
     if cam_mask is not None:
         raw = raw.replace(mask=raw.mask & cam_mask[:, None])
 
-    points_in = raw.mask.sum()
     h = cfg.height // cfg.decimation
     w = cfg.width // cfg.decimation
 
     if cfg.with_normals:
         # full-resolution grid normals ride the rgb channel (sensor frame;
-        # _stitch_tail rotates and quantises them)
-        nrm_full, _ = grid_normals(raw.xyz.reshape(ncam, h, w, 3),
-                                   raw.mask.reshape(ncam, h, w))
-        raw = raw.replace(rgb=nrm_full.reshape(ncam, -1, 3))
+        # _world_clouds rotates and quantises them)
+        nrm_full, _ = grid_normals(raw.xyz.reshape(n, h, w, 3),
+                                   raw.mask.reshape(n, h, w))
+        raw = raw.replace(rgb=nrm_full.reshape(n, -1, 3))
 
     # ICP clouds from a grid-stride subsample + a small voxel pass
     s = cfg.icp_stride
-    sub_xyz = raw.xyz.reshape(ncam, h, w, 3)[:, ::s, ::s]
-    sub_mask = raw.mask.reshape(ncam, h, w)[:, ::s, ::s]
+    sub_xyz = raw.xyz.reshape(n, h, w, 3)[:, ::s, ::s]
+    sub_mask = raw.mask.reshape(n, h, w)[:, ::s, ::s]
     sub_rgb = None
     if cfg.icp_enabled and cfg.icp_variant == "point_to_plane":
         # normals of the strided grid ride the ICP voxel pass in rgb
         nrm, nvalid = grid_normals(sub_xyz, sub_mask)
         sub_mask = sub_mask & nvalid
-        sub_rgb = nrm.reshape(ncam, -1, 3)
-    sub = PointCloud(xyz=sub_xyz.reshape(ncam, -1, 3),
-                     mask=sub_mask.reshape(ncam, -1), rgb=sub_rgb)
-    return _stitch_tail(cfg, raw, extrinsics, points_in, sub, out_leaf)
+        sub_rgb = nrm.reshape(n, -1, 3)
+    sub = PointCloud(xyz=sub_xyz.reshape(n, -1, 3),
+                     mask=sub_mask.reshape(n, -1), rgb=sub_rgb)
+    return raw, sub
+
+
+def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
+                depths: torch.Tensor, colors: Optional[torch.Tensor] = None,
+                cam_mask: Optional[torch.Tensor] = None,
+                color_intr: Optional[Intrinsics] = None,
+                color_ext: Optional[torch.Tensor] = None,
+                out_leaf=None) -> StitchOutput:
+    """One full stitching step; a pure function of its inputs. The
+    positional order is the JAX package's.
+
+    Args:
+      cfg: configuration.
+      intr: camera-batched Intrinsics on the depths' device.
+      extrinsics: [ncam, 4, 4] camera→world transforms.
+      depths: [ncam, H, W] uint16 raw depth.
+      colors: optional [ncam, H, W, 3] uint8 depth-aligned colour — or,
+        with color_intr, [ncam, Hc, Wc, 3] colour at its own resolution.
+      cam_mask: optional [ncam] bool — False drops a camera.
+      color_intr/color_ext: optional colour-stream Intrinsics and [ncam, 4,
+        4] depth→colour extrinsics (identity when None): colour attaches by
+        projecting each point into the colour camera (``map_color``).
+      out_leaf: optional 0-d tensor overriding cfg.out_voxel_leaf.
+    """
+    ncam = cfg.num_cameras
+    if depths.shape[0] != ncam:
+        raise ValueError(f"depths has {depths.shape[0]} cameras, cfg {ncam}")
+    raw, sub = _prepare(cfg, intr, depths, colors, cam_mask, color_intr,
+                        color_ext)
+    return _stitch_tail(cfg, raw, extrinsics, raw.mask.sum(), sub, out_leaf)
 
 
 def stitch_points_step(cfg: StitchConfig, extrinsics: torch.Tensor,

@@ -2,8 +2,10 @@
 
 Counterpart of ``pointcloud_stitching_tpu/utils/platform.py``: the tools
 read ``PCS_PLATFORM`` to pick their device. ``cpu`` runs them on the CPU
-(the kernels' plain versions); unset or ``cuda`` asks for the first GPU,
-and a machine without one is an error, never a silent run on the CPU.
+(the kernels' plain versions); unset or ``cuda`` asks for a GPU (the first,
+or ``LOCAL_RANK``'s where a launcher such as ``torchrun`` starts one process
+per GPU), and a machine without one is an error, never a silent run on the
+CPU.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import torch
 
 
 def platform_device() -> torch.device:
-    """The device that ``PCS_PLATFORM`` asks for (default: cuda:0)."""
+    """The device that ``PCS_PLATFORM`` asks for (default: cuda:0, or
+    cuda:LOCAL_RANK where several GPUs are visible)."""
     want = os.environ.get("PCS_PLATFORM", "").strip().lower() or "cuda"
     if want == "cpu":
         return torch.device("cpu")
@@ -23,6 +26,8 @@ def platform_device() -> torch.device:
         raise RuntimeError("PCS_PLATFORM asks for CUDA (the default) but "
                            "torch.cuda.is_available() is false; set "
                            "PCS_PLATFORM=cpu to run on the CPU")
+    if torch.cuda.device_count() > 1:
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     return torch.device("cuda", 0)
 
 

@@ -505,10 +505,10 @@ PORT_ONLY_OPS = {"map_grid_bounds", "mesh_cloud_arrays", "mm", "se3_blend",
 
 
 def test_port_exports_match_the_jax_package():
-    """ops, models, io and runtime export the JAX package's names (ops
-    also PORT_ONLY_OPS); tools has every CLI of the JAX package. parallel
-    is the one package not ported yet (ROADMAP §1 entry 9)."""
-    for sub in ("ops", "models", "io", "runtime"):
+    """ops, models, io, runtime and parallel export the JAX package's
+    names (ops also PORT_ONLY_OPS); tools has every CLI of the JAX
+    package; no subpackage of the JAX package is left unported."""
+    for sub in ("ops", "models", "io", "runtime", "parallel"):
         want = set(importlib.import_module(
             f"pointcloud_stitching_tpu.{sub}").__all__)
         got = set(importlib.import_module(
@@ -521,4 +521,4 @@ def test_port_exports_match_the_jax_package():
              for p in (jt, pt)]
     assert names[0] <= names[1], names[0] - names[1]
     assert {m.name for m in pkgutil.iter_modules(JP.__path__)} - {
-        m.name for m in pkgutil.iter_modules(PP.__path__)} == {"parallel"}
+        m.name for m in pkgutil.iter_modules(PP.__path__)} == set()
