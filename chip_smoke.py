@@ -13,8 +13,10 @@ temporal voxel map (``models.voxel_map``) at 2^20 slots with change
 detection, localization and the meshers, the registration extras and the
 analysis ops (plane RANSAC, filters, clusters, hulls, ``segment_cli`` and
 the stitch CLI's publisher, viewer and trace) and the sharded port
-(``parallel/``) in worlds of 1 and 4 ranks, and checks the five
-hand-written CUDA kernels on those paths:
+(``parallel/``) in worlds of 1 and 4 ranks and the port's own commands
+(the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
+package's positional order), and checks the five hand-written CUDA
+kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -123,7 +125,17 @@ hand-written CUDA kernels on those paths:
      (d) the Z-slab integrate ('auto', K5 per slab) bit for bit the
      unsharded 'dense' at a 2^-7 m leaf, and the sharded raycast; (e) ms
      per sharded frame, the bytes crossing ranks and the collectives'
-     share of a frame, ms per sharded integrate and raycast.
+     share of a frame, ms per sharded integrate and raycast;
+ 14. the port's commands: (a) ``scripts/local_cluster_torch.py`` with 8
+     cameras of 848x480 and 30 frames (8 fake-server processes and the
+     stitch CLI as a process on loopback), once with ``--save-dir`` and
+     ``--trace-dir`` (30 frames stitched, a cloud saved, K1/K2/K3 launched
+     1/1/5 times a frame by the trace's kernel events) and once untraced
+     with snappy (fps, p50/p99); (b) every entry point whose parameters
+     once sat at other positions than the JAX package's, called on the card
+     in the JAX order and held bit for bit against the call with the JAX
+     package's keywords (K1-K4 launched); (c) every ``pcs-torch-*`` target
+     of pyproject.toml imported in a process where jax cannot be imported.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -351,14 +363,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/13 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/14 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/13 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/14 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -412,7 +424,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/13 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/14 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -679,7 +691,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/13 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/14 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -729,7 +741,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/13 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/14 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -755,7 +767,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/13 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/14 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -789,7 +801,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/13 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/14 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -803,6 +815,7 @@ def main() -> int:
     extras_phase(dev, kb, card)
     analysis_phase(dev, kb, card)
     parallel_phase(dev, card, t_auto)
+    commands_phase(dev, kb, card)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -912,7 +925,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/13 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/14 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1306,7 +1319,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/13 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/14 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1606,7 +1619,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/13 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/14 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1888,7 +1901,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/13 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/14 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -2158,7 +2171,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/13 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/14 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2353,6 +2366,13 @@ PLANE_THR = 0.01         # m: segment_plane and both CLIs' --drop-plane
 DROP_FRAMES = 30         # stitch_cli runs of (b)
 G_FRAMES = 5             # the traced stitch_cli run of (g)
 G_VIEW_EVERY = 2
+# s: the staleness limit of stitch_cli's client in (b) and (g). The client's
+# 0.5 s default drops a camera whose newest frame is older than that, and
+# with the view and the profiler on, a healthy loopback camera's frame comes
+# near it (scripts/check_stale_ages.py measures how near); a frame stitched
+# without a camera is not the direct call's cloud. No live loopback camera
+# ages this far.
+CLI_STALE_S = 30.0
 CLUSTER_TOL = 0.05       # m: euclidean_clusters, the exact clusterers
 SKELETON_LEAF = 0.02     # m: the exact clusterers' skeleton
 SKELETON_CAP = 16384
@@ -2477,6 +2497,7 @@ def analysis_phase(dev, kb, card) -> None:
     from pointcloud_stitching_tpu_torch.ops import sac as SAC
     from pointcloud_stitching_tpu_torch.runtime import (
         Codec, FakeCameraServer, Kind, recv_frame, stitch_cli, wire)
+    from pointcloud_stitching_tpu_torch.runtime import client as CL
     from pointcloud_stitching_tpu_torch.runtime import publisher as PUB
     from pointcloud_stitching_tpu_torch.tools import segment_cli
 
@@ -2527,7 +2548,7 @@ def analysis_phase(dev, kb, card) -> None:
         if tag == "113k":
             line = disc_check(pc, PLANE_THR)
         planes[tag] = model
-        say(f"[12/13 analysis] {card}: (a) segment_plane {tag} "
+        say(f"[12/14 analysis] {card}: (a) segment_plane {tag} "
             f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
             f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
             f"all within the threshold{line}; {ms:.3f} ms per call "
@@ -2540,6 +2561,23 @@ def analysis_phase(dev, kb, card) -> None:
                for f in frames]
     cams = sum((["--camera", f"127.0.0.1:{srv.port}"] for srv in servers),
                [])
+    # stitch_cli's client keeps every live camera (CLI_STALE_S) and records
+    # how many cameras each snapshot took: (b) and (g) compare each frame
+    # with the direct call on all NCAM cameras
+    live = []
+    real_init, real_snapshot = (CL.MulticameraClient.__init__,
+                                CL.MulticameraClient._snapshot)
+
+    def patient_init(self, *a, **kw):
+        real_init(self, *a, **{**kw, "stale_timeout": CLI_STALE_S})
+
+    def counted_snapshot(self, *a, **kw):
+        stage, n = real_snapshot(self, *a, **kw)
+        live.append(n)
+        return stage, n
+
+    CL.MulticameraClient.__init__ = patient_init
+    CL.MulticameraClient._snapshot = counted_snapshot
     try:
         with tempfile.TemporaryDirectory() as tmp:
             # (b) stitch_cli --drop-plane against a run without the flag,
@@ -2553,9 +2591,12 @@ def analysis_phase(dev, kb, card) -> None:
                                                  str(PLANE_THR)])):
                 out = os.path.join(tmp, tag.strip("-"))
                 kb.reset_launches()
+                live.clear()
                 with contextlib.redirect_stdout(io.StringIO()):
                     m = stitch_cli.main(base + ["--save-dir", out] + extra)
                 torch.cuda.synchronize()
+                check(live and min(live) == NCAM,
+                      f"(b) {tag}: live cameras at each snapshot {live}")
                 runs[tag] = (m, dict(kb.LAUNCHES), out)
             # the reference: the CLI's pipeline (default config, nominal
             # D435 intrinsics, identity poses) called directly
@@ -2642,6 +2683,7 @@ def analysis_phase(dev, kb, card) -> None:
             PUB.CloudPublisher.start = start_and_wait
             env_display = {k: os.environ.pop(k) for k in
                            ("DISPLAY", "WAYLAND_DISPLAY") if k in os.environ}
+            live.clear()
             try:
                 t = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
@@ -2660,12 +2702,16 @@ def analysis_phase(dev, kb, card) -> None:
             sub.join(timeout=60)
             check(not sub.is_alive() and not sub_err,
                   f"(g) subscriber: {sub_err}")
+            check(live and min(live) == NCAM,
+                  f"(g) live cameras at each snapshot {live}")
             packed, _ = wire.unpack_points_i16mm(
                 wire.pack_points_i16mm(wants["without"]))
-            check(len(got_frames) == G_FRAMES
-                  and all(np.array_equal(x, packed) for x in got_frames),
-                  f"(g) the subscriber got {len(got_frames)} frames, or "
-                  "one differs from the saved cloud")
+            same = [np.array_equal(x, packed) for x in got_frames]
+            check(len(got_frames) == G_FRAMES and all(same),
+                  f"(g) the subscriber got {len(got_frames)} frames, equal "
+                  f"to the saved cloud {same}, of "
+                  f"{[len(x) for x in got_frames]} points against "
+                  f"{len(packed)}")
             images = sorted(os.listdir(view_dir))
             check(len(images) == -(-G_FRAMES // G_VIEW_EVERY) + 1,
                   f"(g) the view wrote {images}")
@@ -2685,6 +2731,8 @@ def analysis_phase(dev, kb, card) -> None:
                 f"trace.json {os.path.getsize(trace_file) / 2**20:.1f} MiB "
                 f"names segsum_flags_kernel (K1) and nn_batched_split (K3)")
     finally:
+        CL.MulticameraClient.__init__ = real_init
+        CL.MulticameraClient._snapshot = real_snapshot
         for srv in servers:
             srv.stop()
 
@@ -3382,7 +3430,7 @@ def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
         a = one["stitch"][i]
         name = ("make_shardmap_stitch" if kind == "shardmap"
                 else "make_sharded_stitch")
-        say(f"[13/13 parallel] (a) {labels[0]} {card}: {name} "
+        say(f"[13/14 parallel] (a) {labels[0]} {card}: {name} "
             f"{tag}: {SHARD_FRAMES} frames track mode, points_out "
             f"{a['pts'][0]}..{a['pts'][-1]}; 'auto' == 'torch' bit for "
             f"bit; |ext - stitch_step| {a['d_unsharded']:.3g} (points_out "
@@ -3464,6 +3512,342 @@ def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
         f"config, {SHARD_TIMED} frames track mode: " + "; ".join(parts)
         + f"; phase 6 unsharded {unsharded_ms:.3f} ms per frame")
     say(f"    phase 13 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+# --- phase 14: the port's commands -------------------------------------------
+CLUSTER_FRAMES = 30
+CLUSTER_TIMEOUT = 600    # seconds for one launcher run, its build included
+# the CUDA kernels of the stitch path, by the names the trace gives them,
+# and their launches per stitched frame at stitch_cli's default config
+# (ring ICP of 5 iterations on, no per-camera pass)
+TRACE_KERNELS = {"K1": ("segsum_flags_kernel", 1),
+                 "K2": ("segsum_sorted_kernel", 1),
+                 "K3": ("nn_batched_split", 5)}
+# the JAX package's positional parameters of each entry point whose order
+# the port once broke (tests/test_torch_signatures.py holds the port to
+# them; this script may not import the JAX package to read them)
+JAX_ORDER = {
+    "nearest_neighbors": ("query", "ref", "ref_mask", "query_tile",
+                          "ref_tile", "impl", "interpret"),
+    "icp_batched": ("src", "dst", "init_T", "iterations", "max_corr_dist",
+                    "query_tile", "ref_tile", "nn_impl", "trim_fraction",
+                    "nn_interpret"),
+    "icp_point_to_plane_batched": (
+        "src", "dst", "dst_normals", "init_T", "iterations", "max_corr_dist",
+        "query_tile", "ref_tile", "nn_impl", "trim_fraction", "nn_interpret"),
+    "icp": ("src", "dst", "init_T", "iterations", "max_corr_dist",
+            "query_tile", "ref_tile", "nn_impl", "trim_fraction", "prune"),
+    "icp_converge": ("src", "dst", "init_T", "max_iterations",
+                     "transformation_epsilon", "max_corr_dist", "query_tile",
+                     "ref_tile", "nn_impl", "trim_fraction", "prune"),
+    "register_pair": ("src", "dst", "src_idx", "dst_idx", "refine",
+                      "max_iterations", "transformation_epsilon",
+                      "max_corr_dist", "query_tile", "ref_tile",
+                      "trim_fraction", "prune"),
+    # JAX's "key" is the port's "generator"
+    "register_global": ("src", "dst", "generator", "num_starts",
+                        "coarse_leaf", "coarse_capacity",
+                        "coarse_iterations", "coarse_corr_dist",
+                        "coarse_trim", "query_tile", "ref_tile", "refine",
+                        "fpfh_starts", "fpfh_k_corr"),
+    "voxel_downsample": ("pc", "leaf", "capacity", "impl", "interpret",
+                         "packed"),
+    "voxel_map_update": ("vmap", "cloud", "decay", "min_weight",
+                         "max_weight", "impl", "interpret"),
+    "TemporalAccumulator": ("capacity", "leaf", "decay", "min_weight",
+                            "max_weight", "with_rgb", "impl", "interpret"),
+    "StitchingPipeline": ("cfg", "intr", "extrinsics", "update_mode",
+                          "ema_alpha", "color_intr", "color_ext"),
+    "build": ("force",),
+}
+
+
+def free_base_port(n: int) -> int:
+    """A base port with n free loopback ports above it."""
+    import socket
+    for _ in range(50):
+        with socket.socket() as so:
+            so.bind(("127.0.0.1", 0))
+            base = so.getsockname()[1]
+        if base + n >= 65536:
+            continue
+        socks = []
+        try:
+            for port in range(base, base + n):
+                socks.append(socket.socket())
+                socks[-1].bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for so in socks:
+                so.close()
+    raise RuntimeError("no run of free ports")
+
+
+def run_cluster(dev, tag: str, extra: list, client_args: str) -> dict:
+    """scripts/local_cluster_torch.py with NCAM cameras of HxW and
+    CLUSTER_FRAMES frames as a subprocess, its client on ``dev``; returns
+    stitch_cli's summary."""
+    cmd = [sys.executable, os.path.join(REPO, "scripts",
+                                        "local_cluster_torch.py"),
+           "--cameras", str(NCAM), "--frames", str(CLUSTER_FRAMES),
+           "--height", str(H), "--width", str(W),
+           "--base-port", str(free_base_port(NCAM)), *extra,
+           "--client-args", client_args + " --print-every 0"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=CLUSTER_TIMEOUT)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"(a) {tag}: the launcher exited with "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    up = sum(line.startswith("fake camera server on ") for line in lines)
+    check(up == NCAM, f"(a) {tag}: {up} of {NCAM} servers came up")
+    check(f"streaming from {NCAM} cameras on {dev}" in proc.stdout,
+          f"(a) {tag}: the client did not stream on {dev}")
+    summary = json.loads(lines[-1])
+    check(summary["frames"] == CLUSTER_FRAMES
+          and summary["dropped_cameras"] == 0,
+          f"(a) {tag}: stitched {summary}")
+    summary["wall_s"] = wall
+    return summary
+
+
+def trace_launches(trace_file: str) -> dict:
+    """Device kernel events per stitch kernel in a torch.profiler trace."""
+    with open(trace_file) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {k: sum(kname in n for n in names)
+            for k, (kname, _) in TRACE_KERNELS.items()}
+
+
+def positional_calls(dev):
+    """(name, positional call, keyword call) for each entry point of the
+    table, on the card at the registration and flagship shapes; the keyword
+    call names the arguments as the JAX package does."""
+    import torch
+    from pointcloud_stitching_tpu_torch import (Intrinsics, PointCloud,
+                                                StitchConfig,
+                                                StitchingPipeline, native)
+    from pointcloud_stitching_tpu_torch.models import (register_global,
+                                                       register_pair)
+    from pointcloud_stitching_tpu_torch.models.voxel_map import (
+        TemporalAccumulator, VoxelMap, voxel_map_update)
+    from pointcloud_stitching_tpu_torch.ops import (
+        icp, icp_batched, icp_converge, icp_point_to_plane_batched,
+        nearest_neighbors, voxel_downsample)
+
+    sc = registration_scene(dev)
+    src, dst = sc.src, sc.dst
+    # the ring ICP's batch: 7 pairs of 2048-point clouds cut from the scene
+    b, n = NCAM - 1, 2048
+    bs = PointCloud(xyz=src.xyz[:b * n].reshape(b, n, 3),
+                    mask=src.mask[:b * n].reshape(b, n))
+    bd = PointCloud(xyz=dst.xyz[:b * n].reshape(b, n, 3),
+                    mask=dst.mask[:b * n].reshape(b, n))
+    normals = torch.nn.functional.normalize(bd.xyz, dim=-1)
+    frames, ext = stream_rig()
+    i0 = Intrinsics.create(fx=421.5, fy=421.1, ppx=W / 2.0, ppy=H / 2.0,
+                           width=W, height=H, device=dev)
+    intr = i0.stack([i0] * (NCAM - 1))
+    cfg = flagship_cfg(StitchConfig)
+    depths = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    inf = float("inf")
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def two_frames(*a, **k):
+        pipe = StitchingPipeline(*a, **k)
+        check(pipe.device == dev, f"the pipeline chose {pipe.device}")
+        return [pipe(depths), pipe(depths), pipe.extrinsics]
+
+    def two_updates(*a, **k):
+        """Two updates (src, then dst) of a fresh 2^20-slot map."""
+        vmap = VoxelMap.create(1 << 20, 0.01)
+        check(vmap.device == dev, f"the map chose {vmap.device}")
+        for cloud in (src, dst):
+            if a:
+                vmap = voxel_map_update(vmap, cloud, *a, **k)
+            else:
+                vmap = voxel_map_update(**{**k, "vmap": vmap,
+                                           "cloud": cloud})
+        return vmap
+
+    def accumulate(*a, **k):
+        acc = TemporalAccumulator(*a, **k)
+        check(acc.state.device == dev, f"the map chose {acc.state.device}")
+        acc.update(src)
+        acc.update(dst)
+        return acc.state
+
+    def rebuilt(*a, **k):
+        before = native.build().stat().st_mtime_ns
+        path = native.build(*a, **k)
+        check(path.stat().st_mtime_ns > before, "build(force) did not "
+              "rebuild the native library")
+        return str(path)
+
+    rows = {
+        "nearest_neighbors": (nearest_neighbors, (
+            src.xyz, dst.xyz, dst.mask, 1024, 4096, "auto", False)),
+        "icp_batched": (icp_batched, (
+            bs, bd, None, 5, 0.1, 1024, 4096, "auto", 0.1, False)),
+        "icp_point_to_plane_batched": (icp_point_to_plane_batched, (
+            bs, bd, normals, None, 5, 0.1, 1024, 4096, "auto", 0.1, False)),
+        "icp": (icp, (src, dst, None, 5, 0.1, 1024, 4096, "auto", 0.0,
+                      True)),
+        "icp_converge": (icp_converge, (
+            src, dst, None, 50, 1e-8, 0.25, 1024, 4096, "auto", 0.0, True)),
+        "register_pair": (register_pair, (
+            src, dst, sc.picks, sc.picks, True, 50, 1e-8, 0.25, 1024, 4096,
+            0.0, True)),
+        "register_global": (register_global, (
+            src, dst, None, 4, 0.05, 1024, 15, None, 0.1, 512, 1024, True,
+            0, 8)),
+        "voxel_downsample": (voxel_downsample, (
+            src, 0.01, REG_CAP, "auto", False, "auto")),
+        "voxel_map_update": (two_updates, (
+            "vmap", "cloud", 0.9, 0.05, inf, "auto", False)),
+        "TemporalAccumulator": (accumulate, (
+            1 << 20, 0.01, 0.9, 0.05, inf, False, "auto", False)),
+        "StitchingPipeline": (two_frames, (cfg, intr, ext, "track", 0.05)),
+        "build": (rebuilt, (True,)),
+    }
+    calls = []
+    for name, (fn, args) in rows.items():
+        kw = dict(zip(JAX_ORDER[name], args))
+        if name == "register_global":
+            # a fresh generator, seeded alike, for each call
+            pos = (lambda fn=fn, a=args: fn(*a[:2], gen(), *a[3:]))
+            key = (lambda fn=fn, kw=kw: fn(**{**kw, "generator": gen()}))
+        elif name == "voxel_map_update":
+            # two_updates passes the map and the cloud itself
+            pos = (lambda fn=fn, a=args: fn(*a[2:]))
+            key = (lambda fn=fn, kw=kw: fn(**{
+                k: v for k, v in kw.items() if k not in ("vmap", "cloud")}))
+        else:
+            pos = (lambda fn=fn, a=args: fn(*a))
+            key = (lambda fn=fn, kw=kw: fn(**kw))
+        calls.append((name, pos, key))
+    return calls
+
+
+def flat(x) -> list:
+    """The tensors and plain values of a result, in a fixed order."""
+    import dataclasses
+
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x)
+                for v in flat(getattr(x, f.name))]
+    if isinstance(x, (tuple, list)):
+        return [v for item in x for v in flat(item)]
+    return [x]
+
+
+def bitwise_equal(a, b) -> bool:
+    import torch
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(
+        (x.dtype == y.dtype and bool(torch.equal(x, y)))
+        if isinstance(x, torch.Tensor) else x == y for x, y in zip(fa, fb))
+
+
+def commands_phase(dev, kb, card) -> None:
+    """Phase 14: the port's own commands. (a) the loopback cluster
+    launcher at the flagship rig, traced; (b) every entry point whose
+    order once differed from the JAX package's, called on the card in the
+    JAX order against its keyword call; (c) the pcs-torch-* targets of
+    pyproject.toml in a process where JAX cannot be imported."""
+    import tempfile
+    import tomllib
+
+    import torch
+    from pointcloud_stitching_tpu_torch.io import load_ply
+
+    t_phase = time.perf_counter()
+    # (a) two runs: traced with --save-dir (the launcher's default zlib
+    # codec), then untraced with snappy, as phase 9 streams
+    with tempfile.TemporaryDirectory() as tmp:
+        save, trace_dir = os.path.join(tmp, "clouds"), os.path.join(
+            tmp, "trace")
+        traced = run_cluster(dev, "traced", [],
+                             f"--save-dir {save} --trace-dir {trace_dir}")
+        plys = sorted(os.listdir(save))
+        xyz, _ = load_ply(os.path.join(save, plys[0]))
+        check(len(xyz) > 100_000 and np.isfinite(xyz).all(),
+              f"(a) the saved cloud {plys[0]} has {len(xyz)} points")
+        trace_file = os.path.join(trace_dir, "trace.json")
+        seen = trace_launches(trace_file)
+        for k, (kname, per_frame) in TRACE_KERNELS.items():
+            check(seen[k] == per_frame * CLUSTER_FRAMES,
+                  f"(a) the trace has {seen[k]} {kname} ({k}) launches, "
+                  f"want {per_frame} per frame")
+        trace_mib = os.path.getsize(trace_file) / 2 ** 20
+    plain = run_cluster(dev, "snappy", ["--codec", "snappy"], "")
+    say(f"[14/14 commands] {card}: (a) scripts/local_cluster_torch.py "
+        f"--cameras {NCAM} --frames {CLUSTER_FRAMES} at {W}x{H}, servers "
+        f"and stitch_cli as processes on loopback: traced (zlib, "
+        f"--save-dir, --trace-dir) {traced['frames']} frames, fps "
+        f"{traced['fps']:.2f} p50 {traced['p50_latency_ms']:.2f} ms under "
+        f"the profiler, {len(plys)} clouds saved ({len(xyz)} points in "
+        f"{plys[0]}), trace.json {trace_mib:.1f} MiB with launches "
+        + ", ".join(f"{k} {TRACE_KERNELS[k][0]} {seen[k]}" for k in seen)
+        + f"; untraced (snappy) {plain['frames']} frames, fps "
+        f"{plain['fps']:.2f} p50 {plain['p50_latency_ms']:.2f} ms p99 "
+        f"{plain['p99_latency_ms']:.2f} ms, points/s "
+        f"{plain['points_per_sec']:.4g}, launcher wall {plain['wall_s']:.1f}"
+        f" s (traced {traced['wall_s']:.1f} s)")
+
+    # (b) the JAX positional order on the card
+    kb.reset_launches()
+    parts = []
+    for name, pos, kw in positional_calls(dev):
+        a = pos()
+        b = kw()
+        torch.cuda.synchronize()
+        check(bitwise_equal(a, b), f"(b) {name}: the positional call "
+                                   "differs from the keyword call")
+        parts.append(name)
+    launches = dict(kb.LAUNCHES)
+    for k in ("segment_sum_from_flags", "segment_sum_sorted",
+              "nn_batched_prepared", "nn_batched_prepared_ranged"):
+        check(launches.get(k, 0) > 0, f"(b) the calls launched no {k}")
+    say(f"    (b) JAX's positional order on the card, each call bit for "
+        f"bit its keyword call: {', '.join(parts)}; launches "
+        + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
+
+    # (c) the console scripts' targets, imported with JAX blocked
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    targets = sorted(v for k, v in scripts.items()
+                     if k.startswith("pcs-torch-"))
+    jax_cmds = [k for k, v in scripts.items()
+                if v.startswith("pointcloud_stitching_tpu.")]
+    check(len(targets) == len(jax_cmds) == 10
+          and all(k.replace("pcs-", "pcs-torch-", 1) in scripts
+                  for k in jax_cmds),
+          f"(c) pyproject.toml's pcs-torch-* commands: {targets}")
+    code = ("import importlib, sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'pointcloud_stitching_tpu'):"
+            "\n    sys.modules[m] = None\n"
+            f"for t in {targets!r}:\n"
+            "    mod, fn = t.split(':')\n"
+            "    assert callable(getattr(importlib.import_module(mod), fn))\n"
+            "print('imported', len(sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"(c) a pcs-torch-* target did not import "
+                                f"with jax blocked:\n{proc.stderr[-3000:]}")
+    say(f"    (c) {len(targets)} pcs-torch-* targets imported with jax "
+        f"blocked ({proc.stdout.split()[-1]} modules loaded)")
+    say(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
 
 if __name__ == "__main__":

@@ -28,6 +28,12 @@ real point; on a tie the lowest reference index wins. The reference is not
 padded (the kernel handles a ragged last tile), so ``idx < M`` holds without
 the reference's clamp to ``num_ref - 1``; the direct form is non-negative,
 so ``d2 >= 0`` needs no clamp either.
+
+The wrappers keep the reference's parameter order. ``query_tile`` is taken
+and, where the kernel has no such tile, ignored; the reference's
+TPU-only parameters (``rsq``, ``num_ref``, ``ref_block`` where unused,
+``interpret``, ``precision``, ``method``) are not taken, and ``refT``, the
+prepared reference, stands where the reference's ``rT`` does.
 """
 from __future__ import annotations
 
@@ -120,10 +126,11 @@ def _check_nn_args(query: torch.Tensor, refT: torch.Tensor) -> None:
 
 
 def nn_batched_prepared(query: torch.Tensor, refT: torch.Tensor,
-                        impl: str = "auto"):
+                        query_tile: int = 1024, impl: str = "auto"):
     """Batched NN of query [B, N, 3] against a prepared reference
     [B, 3, M] (see prepare_ref_batched). Returns (idx [B, N] int32,
-    d2 [B, N] float32)."""
+    d2 [B, N] float32). ``query_tile`` is ignored (the kernel's tile is
+    ``NN_QUERY_TILE``)."""
     _check_nn_args(query, refT)
     b, n, _ = query.shape
     m = refT.shape[-1]
@@ -147,16 +154,19 @@ def nn_batched_prepared(query: torch.Tensor, refT: torch.Tensor,
 
 def nearest_neighbors_pallas_batched(query: torch.Tensor, ref: torch.Tensor,
                                      ref_mask: torch.Tensor | None = None,
+                                     query_tile: int = 1024,
                                      impl: str = "auto"):
-    """Batched NN: query [B, N, 3] vs ref [B, M, 3] pairwise per batch row."""
+    """Batched NN: query [B, N, 3] vs ref [B, M, 3] pairwise per batch row
+    (``query_tile`` ignored)."""
     return nn_batched_prepared(query, prepare_ref_batched(ref, ref_mask),
                                impl=impl)
 
 
 def nearest_neighbors_pallas(query: torch.Tensor, ref: torch.Tensor,
                              ref_mask: torch.Tensor | None = None,
-                             impl: str = "auto"):
-    """Single-pair NN: query [N, 3] vs ref [M, 3] -> (idx [N], d2 [N])."""
+                             query_tile: int = 1024, impl: str = "auto"):
+    """Single-pair NN: query [N, 3] vs ref [M, 3] -> (idx [N], d2 [N])
+    (``query_tile`` ignored)."""
     idx, d2 = nearest_neighbors_pallas_batched(
         query[None], ref[None], None if ref_mask is None else ref_mask[None],
         impl=impl)

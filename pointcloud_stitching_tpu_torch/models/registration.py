@@ -61,13 +61,15 @@ def register_pair(src: PointCloud, dst: PointCloud,
                   max_iterations: int = 50,
                   transformation_epsilon: float = 1e-8,
                   max_corr_dist: float = 0.25,
+                  query_tile: int = 1024,
+                  ref_tile: int = 4096,
                   trim_fraction: float = 0.0,
                   prune: bool = False,
-                  kernel_impl: str = "auto", query_tile: int = 1024,
-                  ref_tile: int = 4096) -> RegistrationResult:
+                  kernel_impl: str = "auto") -> RegistrationResult:
     """Full calibration solve: optional picked-pair init + ICP refinement.
-    ``query_tile``/``ref_tile`` are taken as the JAX package does and
-    ignored (see ops.icp)."""
+    The parameters sit at the JAX package's positions; ``query_tile``/
+    ``ref_tile`` are taken and ignored (see ops.icp), and the port's
+    ``kernel_impl`` comes after them all."""
     if src_idx is not None:
         init_T = register_from_correspondences(src, dst, src_idx, dst_idx)
     else:
@@ -208,10 +210,10 @@ def register_global(src: PointCloud, dst: PointCloud,
                     coarse_iterations: int = 15,
                     coarse_corr_dist: Optional[float] = None,
                     coarse_trim: float = 0.1,
+                    query_tile: int = 512, ref_tile: int = 1024,
                     refine: bool = True,
                     fpfh_starts: int = 0, fpfh_k_corr: int = 8,
                     kernel_impl: str = "auto",
-                    query_tile: int = 512, ref_tile: int = 1024,
                     **refine_kw) -> RegistrationResult:
     """Automatic pairwise registration — no picked correspondences.
 
@@ -227,9 +229,10 @@ def register_global(src: PointCloud, dst: PointCloud,
     tie-break — seeds a full-resolution ``icp_converge`` (``refine_kw``;
     ``max_corr_dist`` defaults to twice the fitted leaf).
 
-    ``query_tile``/``ref_tile`` are taken as the JAX package does and
-    ignored (see ops.icp). With ``num_starts <= 25`` no random rotation is
-    used. Like any
+    The parameters sit at the JAX package's positions, with
+    ``generator`` in place of its ``key`` and the port's ``kernel_impl``
+    after them all; ``query_tile``/``ref_tile`` are taken and ignored (see
+    ops.icp). With ``num_starts <= 25`` no random rotation is used. Like any
     geometry-only method it can lock onto a symmetry of the scene: check
     ``icp.mean_error`` / ``num_inliers``. Where geometry alone is
     ambiguous, ``fpfh_starts > 0`` appends that many FPFH-correspondence

@@ -27,7 +27,7 @@ from ..ops.se3 import mm, se3_apply, se3_blend, se3_identity, se3_power
 from ..ops.deproject import deproject, deproject_with_color, map_color
 from ..ops.voxel import decimate_depth, voxel_downsample
 from ..utils.config import StitchConfig
-from ..utils.platform import set_full_fp32_matmul
+from ..utils.platform import platform_device, set_full_fp32_matmul
 from ..utils.types import Intrinsics, PointCloud, scalar
 
 
@@ -344,21 +344,25 @@ class StitchingPipeline:
       * 'ema': exponential blend toward the refined transforms.
     """
 
-    def __init__(self, cfg: StitchConfig, intr: Intrinsics, extrinsics, *,
-                 device, update_mode: str = "anchored",
+    def __init__(self, cfg: StitchConfig, intr: Intrinsics, extrinsics,
+                 update_mode: str = "anchored",
                  ema_alpha: float = 0.05,
                  color_intr: Optional[Intrinsics] = None,
-                 color_ext=None):
-        """color_intr/color_ext: per-camera colour-stream calibration for
+                 color_ext=None, *, device=None):
+        """The JAX package's parameters at its positions.
+        color_intr/color_ext: per-camera colour-stream calibration for
         non-aligned colour (see stitch_step); required when
-        cfg.color_height is set."""
+        cfg.color_height is set. ``device`` (keyword only) defaults to
+        ``utils.platform.platform_device()``: the GPU, or the CPU only
+        when ``PCS_PLATFORM=cpu`` asks for it."""
         if update_mode not in ("anchored", "track", "ema"):
             raise ValueError(update_mode)
         if cfg.color_height is not None and color_intr is None:
             raise ValueError("cfg.color_height set but no color_intr given")
         set_full_fp32_matmul()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = (platform_device() if device is None
+                       else torch.device(device))
         self.intr = intr.to(self.device)
         self.color_intr = (None if color_intr is None
                            else color_intr.to(self.device))

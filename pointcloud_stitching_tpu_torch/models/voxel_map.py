@@ -76,6 +76,9 @@ class VoxelMap:
     def device(self) -> torch.device:
         return self.ijk.device
 
+    def replace(self, **changes) -> "VoxelMap":
+        return dataclasses.replace(self, **changes)
+
     def count(self) -> torch.Tensor:
         """Occupied-voxel count (0-d int32 on the device)."""
         return (self.ijk[:, 0] != _SENTINEL).sum(dtype=torch.int32)
@@ -200,7 +203,7 @@ def _finish(sums: torch.Tensor, leaf: torch.Tensor, max_weight,
 
 def voxel_map_update(vmap: VoxelMap, cloud: PointCloud, decay=1.0,
                      min_weight=0.05, max_weight=float("inf"),
-                     impl: str = "auto") -> VoxelMap:
+                     impl: str = "auto", interpret: bool = False) -> VoxelMap:
     """Merge one world-frame cloud into the map; returns the new map.
 
     Args:
@@ -214,6 +217,8 @@ def voxel_map_update(vmap: VoxelMap, cloud: PointCloud, decay=1.0,
       max_weight: cap on a voxel's evidence (its sums rescale to keep the
         mean); inf = pure accumulation.
       impl: K1's backend, 'auto' | 'cuda' | 'torch' (as ``voxel_downsample``).
+      interpret: taken at the JAX package's position and ignored (Pallas's
+        interpreter; the port's CPU path is K1's plain version).
 
     Scalars may be Python numbers or 0-d tensors; no host sync is made.
     Occupied voxels past the capacity drop in ascending key order.
@@ -300,7 +305,10 @@ class TemporalAccumulator:
 
     def __init__(self, capacity: int, leaf: float, decay: float = 1.0,
                  min_weight: float = 0.05, max_weight: float = float("inf"),
-                 with_rgb: bool = False, impl: str = "auto", device=None):
+                 with_rgb: bool = False, impl: str = "auto",
+                 interpret: bool = False, device=None):
+        """The JAX package's parameters at its positions (``interpret`` is
+        taken and ignored); ``device`` defaults to ``platform_device()``."""
         self.state = VoxelMap.create(capacity, leaf, with_rgb=with_rgb,
                                      device=device)
         self._decay = decay
@@ -328,9 +336,11 @@ class TemporalAccumulator:
     def load(cls, path: str, capacity: int | None = None,
              decay: float = 1.0, min_weight: float = 0.05,
              max_weight: float = float("inf"), impl: str = "auto",
+             interpret: bool = False,
              device=None) -> "TemporalAccumulator":
         """Resume from a ``save`` checkpoint: ``leaf`` and colour come from
-        the file, the update policy is passed fresh."""
+        the file, the update policy is passed fresh (``interpret`` is
+        taken at the JAX package's position and ignored)."""
         acc = cls.__new__(cls)
         acc.state = load_map(path, capacity=capacity, device=device)
         acc._decay = decay

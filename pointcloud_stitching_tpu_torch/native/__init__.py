@@ -37,12 +37,12 @@ def lib_path() -> Path:
     return BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / LIB_NAME
 
 
-def build() -> Path:
-    """Compile the library unless it exists; returns its path. Several
-    processes may build at once: each links into a temporary file and
-    renames it into place."""
+def build(force: bool = False) -> Path:
+    """Compile the library unless it exists (or always, with ``force``);
+    returns its path. Several processes may build at once: each links into
+    a temporary file and renames it into place."""
     path = lib_path()
-    if path.exists():
+    if path.exists() and not force:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)

@@ -2,4 +2,4 @@
 from . import build
 
 if __name__ == "__main__":
-    print(build())
+    print(build(force=True))

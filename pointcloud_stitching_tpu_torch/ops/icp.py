@@ -18,10 +18,12 @@ voxel-sorted clouds. Unlike the JAX package, which ignores ``prune`` off
 the TPU, the port honours it on every device; the plain versions run it on
 the CPU.
 
-Every entry point takes the reference's ``query_tile``/``ref_tile`` and
-ignores them: they size the JAX package's XLA sweep, and the port's NN
-kernels have no such tiles. Callers written for the reference run as they
-are.
+Every entry point takes the reference's parameters at the reference's
+positions, so callers written for it run as they are, by position or by
+keyword. ``query_tile``/``ref_tile`` (they size the JAX package's XLA
+sweep; the port's NN kernels have no such tiles) and ``nn_interpret``
+(Pallas's interpreter; the port's CPU path is the plain version) are taken
+and ignored.
 """
 from __future__ import annotations
 
@@ -81,10 +83,14 @@ def _init(src: PointCloud, init_T, max_corr_dist):
 
 def icp_batched(src: PointCloud, dst: PointCloud,
                 init_T: torch.Tensor | None = None, iterations: int = 5,
-                max_corr_dist=0.1, nn_impl: str = "auto",
-                trim_fraction: float = 0.0, query_tile: int = 1024,
-                ref_tile: int = 4096) -> ICPResult:
-    """Point-to-point ICP over B independent cloud pairs at once."""
+                max_corr_dist=0.1, query_tile: int = 1024,
+                ref_tile: int = 4096, nn_impl: str = "auto",
+                trim_fraction: float = 0.0,
+                nn_interpret: bool = False) -> ICPResult:
+    """Point-to-point ICP over B independent cloud pairs at once.
+
+    ``query_tile``, ``ref_tile`` and ``nn_interpret`` sit at the JAX
+    function's positions and are ignored (see the module docstring)."""
     b, T, max_d2 = _init(src, init_T, max_corr_dist)
     nn = _make_nn_batched(dst, nn_impl)
     err = torch.full((b,), float("inf"), device=src.xyz.device)
@@ -112,15 +118,17 @@ def icp_point_to_plane_batched(src: PointCloud, dst: PointCloud,
                                dst_normals: torch.Tensor,
                                init_T: torch.Tensor | None = None,
                                iterations: int = 5, max_corr_dist=0.1,
+                               query_tile: int = 1024,
+                               ref_tile: int = 4096,
                                nn_impl: str = "auto",
                                trim_fraction: float = 0.0,
-                               query_tile: int = 1024,
-                               ref_tile: int = 4096) -> ICPResult:
+                               nn_interpret: bool = False) -> ICPResult:
     """Point-to-plane ICP over B cloud pairs (Chen & Medioni).
 
     Minimises sum w ((R p + t - q) . n_q)^2 per iteration through the
     linearised 6x6 normal equations. dst_normals: [B, M, 3] unit normals;
-    correspondences with near-zero normals are dropped.
+    correspondences with near-zero normals are dropped. ``query_tile``,
+    ``ref_tile`` and ``nn_interpret`` are ignored, as in ``icp_batched``.
     """
     b, T, max_d2 = _init(src, init_T, max_corr_dist)
     nn = _make_nn_batched(dst, nn_impl)
@@ -192,15 +200,15 @@ def _result(T, err, n_in, iterations: int) -> ICPResult:
 
 def icp(src: PointCloud, dst: PointCloud,
         init_T: torch.Tensor | None = None, iterations: int = 5,
-        max_corr_dist=0.1, nn_impl: str = "auto", trim_fraction: float = 0.0,
-        prune: bool = False, query_tile: int = 1024,
-        ref_tile: int = 4096) -> ICPResult:
+        max_corr_dist=0.1, query_tile: int = 1024, ref_tile: int = 4096,
+        nn_impl: str = "auto", trim_fraction: float = 0.0,
+        prune: bool = False) -> ICPResult:
     """Fixed-iteration point-to-point ICP of one pair (constant cost).
 
     src/dst: PointClouds with xyz [N, 3] / [M, 3]. prune=True uses the
     key-range-pruned NN (exact; see kernels.nn_pallas
     .nearest_neighbors_pruned), which pays off on large voxel-sorted
-    clouds.
+    clouds. ``query_tile``/``ref_tile`` are ignored.
     """
     T, max_d2, err, n_in = _init_single(src, init_T, max_corr_dist)
     for _ in range(iterations):
@@ -213,10 +221,10 @@ def icp_converge(src: PointCloud, dst: PointCloud,
                  init_T: torch.Tensor | None = None,
                  max_iterations: int = 50,
                  transformation_epsilon: float = 1e-8,
-                 max_corr_dist=0.25, nn_impl: str = "auto",
+                 max_corr_dist=0.25, query_tile: int = 1024,
+                 ref_tile: int = 4096, nn_impl: str = "auto",
                  trim_fraction: float = 0.0,
-                 prune: bool = False, query_tile: int = 1024,
-                 ref_tile: int = 4096) -> ICPResult:
+                 prune: bool = False) -> ICPResult:
     """ICP with PCL-style termination: stop when the incremental
     transform's squared Frobenius distance from identity drops to
     ``transformation_epsilon`` or after ``max_iterations``.
@@ -224,7 +232,8 @@ def icp_converge(src: PointCloud, dst: PointCloud,
     The test runs on the host: one host sync per iteration (the JAX
     package's ``while_loop`` has none), which an offline tool can afford.
     On CUDA, Kabsch's ``torch.linalg.svd`` adds two more per iteration
-    (it reads its status on the host).
+    (it reads its status on the host). ``query_tile``/``ref_tile`` are
+    ignored.
     """
     T, max_d2, err, n_in = _init_single(src, init_T, max_corr_dist)
     eye = torch.eye(4, dtype=torch.float32, device=T.device)

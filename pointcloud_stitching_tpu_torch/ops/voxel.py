@@ -188,7 +188,8 @@ def _reduce_batched(flags, vals, capacity: int, impl: str):
 
 
 def voxel_downsample(pc: PointCloud, leaf, capacity: int,
-                     impl: str = "auto", packed: str = "auto") -> PointCloud:
+                     impl: str = "auto", interpret: bool = False,
+                     packed: str = "auto") -> PointCloud:
     """Downsample to one centroid per occupied voxel; output padded to
     ``capacity`` (voxels past capacity drop, in sort order).
 
@@ -197,6 +198,8 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
       leaf: voxel edge in meters (Python float or 0-d tensor).
       capacity: per-cloud output size.
       impl: 'auto' | 'cuda' | 'torch' segment-sum backend.
+      interpret: taken at the JAX package's position and ignored (Pallas's
+        interpreter; the port's CPU path is the kernel's plain version).
       packed: 'auto' picks the packed branch when it is exact enough (see
         the module docstring); 'never' forces the exact branch.
     """
