@@ -15,8 +15,9 @@ analysis ops (plane RANSAC, filters, clusters, hulls, ``segment_cli`` and
 the stitch CLI's publisher, viewer and trace) and the sharded port
 (``parallel/``) in worlds of 1 and 4 ranks and the port's own commands
 (the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
-package's positional order), and checks the five hand-written CUDA
-kernels on those paths:
+package's positional order) and the random draws (``utils/prng.py``, JAX's
+threefry2x32 key stream), and checks the seven hand-written CUDA kernels
+on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -98,7 +99,7 @@ kernels on those paths:
      library call (``index_add_``) timed beside it at both shapes;
  12. the analysis ops on phase 7's 113k-point cloud and the flagship's
      262,144-slot output of phase 9's rig: (a) ``segment_plane`` (1024
-     hypotheses, 1 cm) on both, CUDA against CPU on the same draws, ms and
+     hypotheses, 1 cm) on both, CUDA against CPU on key 0, ms and
      host syncs per call, and the plane of a window around the largest
      disc against the disc; (b) ``stitch_cli --drop-plane 0.01`` (30
      frames, in this process) against a run without the flag: every saved
@@ -135,7 +136,17 @@ kernels on those paths:
      once sat at other positions than the JAX package's, called on the card
      in the JAX order and held bit for bit against the call with the JAX
      package's keywords (K1-K4 launched); (c) every ``pcs-torch-*`` target
-     of pyproject.toml imported in a process where jax cannot be imported.
+     of pyproject.toml imported in a process where jax cannot be imported;
+ 15. the random draws (``utils/prng.py``): threefry2x32 and scan16 bit for
+     bit their plain versions (1, 3,072 and 262,144 counters; the scan of
+     the flagship's 262,144-slot mask), the card's bits, split, uniform,
+     randint and choice equal to JAX's values written in as literals
+     (``JAX_DRAWS``), its uniform on a range, normal and categorical equal
+     to the CPU's on the same key, a CPU key with a cloud on the card
+     drawing on the card, both kernels timed in turns with their plain
+     versions (their launches: phase 12 (b)'s ``--drop-plane`` run, one
+     each a frame), and ms and device operations per draw of ``choice`` over
+     262,144 slots, ``normal(39, 4)`` and ``categorical``.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -251,10 +262,11 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, rate: float = F32_INSTR_PER_S):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move ``nbytes`` and issue ``ops`` float32 instructions."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_INSTR_PER_S
+    to move ``nbytes`` and issue ``ops`` instructions at ``rate`` a second
+    (float32 by default)."""
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -363,14 +375,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/14 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/15 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/14 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/15 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -385,9 +397,9 @@ def main() -> int:
     kernels = {}
 
     def report(name, source, replaces, err, times, moved, ops,
-               library_ms=None):
+               library_ms=None, rate=F32_INSTR_PER_S):
         ms, plain_ms, call_ms = times
-        bound_ms, bound_by = bound(moved, ops)
+        bound_ms, bound_by = bound(moved, ops, rate)
         kernels[name] = dict(name=name, route="cuda", source=source,
                              replaces=replaces, launches=0,
                              max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
@@ -424,7 +436,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/14 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/15 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -691,7 +703,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/14 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/15 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -741,7 +753,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/14 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/15 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -767,7 +779,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/14 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/15 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -801,7 +813,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/14 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/15 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -813,9 +825,10 @@ def main() -> int:
     stream_phase(dev, kb, card)
     map_phase(dev, kb, report, kernels, card)
     extras_phase(dev, kb, card)
-    analysis_phase(dev, kb, card)
+    drop_launches, flag = analysis_phase(dev, kb, card)
     parallel_phase(dev, card, t_auto)
     commands_phase(dev, kb, card)
+    prng_phase(dev, kb, report, kernels, card, drop_launches, flag)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -912,6 +925,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     from pointcloud_stitching_tpu_torch.models import (register_global,
                                                        register_pair)
     from pointcloud_stitching_tpu_torch.ops import icp, icp_converge
+    from pointcloud_stitching_tpu_torch.utils import prng
 
     sc = registration_scene(dev)
     src, dst, picks, n_src, T_true = (sc.src, sc.dst, sc.picks, sc.n_src,
@@ -925,7 +939,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/14 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/15 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1063,12 +1077,13 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     T_glob = oracle.random_se3(seed=0, max_angle=2.0, max_trans=0.3)
     dst_g = moved(T_glob)
     kb.reset_launches()
-    rg = register_global(src, dst_g, torch.Generator().manual_seed(0),
+    rg = register_global(src, dst_g, prng.key(0, device=dev),
                          num_starts=64, prune=True)
     torch.cuda.synchronize()
     lg = dict(kb.LAUNCHES)
     itg = int(rg.icp.iterations)
     check(lg.get("segment_sum_from_flags", 0) >= 2
+          and lg.get("threefry2x32") == 1
           and lg.get("nn_batched_prepared") == 15 + itg
           and lg.get("nn_batched_prepared_ranged") == itg,
           f"register_global launches {lg} ({itg} refine iterations)")
@@ -1319,7 +1334,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/14 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/15 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1619,7 +1634,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/14 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/15 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1901,7 +1916,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/14 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/15 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -2171,7 +2186,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/14 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/15 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2388,16 +2403,6 @@ def cloud_to(pc, dev):
                       rgb=None if pc.rgb is None else pc.rgb.to(dev))
 
 
-def plane_draws(mask, seed: int):
-    """RANSAC_M x 3 point indices drawn on the CPU from the valid slots:
-    the same draws for both devices."""
-    import torch
-    return torch.multinomial(mask.cpu().to(torch.float32), 3 * RANSAC_M,
-                             replacement=True,
-                             generator=torch.Generator().manual_seed(seed)
-                             ).view(RANSAC_M, 3)
-
-
 def component_labels(xyz, valid, tol, k, normals=None, cos_thr=None):
     """Independent labels of the exact clusterers at full size: scipy's
     connected components of the radius graph, each edge decided as the
@@ -2441,6 +2446,7 @@ def disc_check(src, thr) -> str:
     RANSAC_M hypotheses rarely hit. Returns the phase line's part."""
     import torch
     from pointcloud_stitching_tpu_torch.ops import segment_plane
+    from pointcloud_stitching_tpu_torch.utils import prng
     xyz = src.xyz.cpu().numpy()
     valid = src.mask.cpu().numpy()
     z = np.where(valid, xyz[:, 2], 1.0)
@@ -2456,7 +2462,7 @@ def disc_check(src, thr) -> str:
     win = valid & (np.hypot(u - cu, v - cv) < 1.2 * r)
     model, inl, cnt = segment_plane(
         src.replace(mask=torch.from_numpy(win).to(src.xyz.device)), thr,
-        torch.Generator(device=src.xyz.device).manual_seed(0))
+        prng.key(0, device=src.xyz.device))
     m = model.cpu().double().numpy()
     tilt = float(np.degrees(np.arccos(min(abs(m[2]), 1.0))))
     depth = -m[3] / m[2]
@@ -2471,10 +2477,38 @@ def disc_check(src, thr) -> str:
             f"{dz:.3f}, every disc point an inlier ({int(cnt)} inliers)")
 
 
-def analysis_phase(dev, kb, card) -> None:
+def patient_client(live: list | None = None):
+    """Make stitch_cli's client keep every live camera (``CLI_STALE_S``)
+    and, given a list ``live``, record in it how many cameras each
+    snapshot took. Returns a function that undoes it."""
+    from pointcloud_stitching_tpu_torch.runtime import client as CL
+    real_init, real_snapshot = (CL.MulticameraClient.__init__,
+                                CL.MulticameraClient._snapshot)
+
+    def patient_init(self, *a, **kw):
+        real_init(self, *a, **{**kw, "stale_timeout": CLI_STALE_S})
+
+    def counted_snapshot(self, *a, **kw):
+        stage, n = real_snapshot(self, *a, **kw)
+        if live is not None:
+            live.append(n)
+        return stage, n
+
+    CL.MulticameraClient.__init__ = patient_init
+    CL.MulticameraClient._snapshot = counted_snapshot
+
+    def undo():
+        CL.MulticameraClient.__init__ = real_init
+        CL.MulticameraClient._snapshot = real_snapshot
+    return undo
+
+
+def analysis_phase(dev, kb, card):
     """Phase 12: the analysis ops on phase 7's 113k-point cloud and the
     flagship's 262,144-slot output of phase 9's rig, and the stitch CLI's
-    remaining options on phase 9's loopback rig."""
+    remaining options on phase 9's loopback rig. Returns the kernels'
+    launches in (b)'s ``stitch_cli --drop-plane`` run, the draws' main
+    path, and the flagship output."""
     import contextlib
     import filecmp
     import io
@@ -2494,12 +2528,11 @@ def analysis_phase(dev, kb, card) -> None:
         passthrough, radius_outlier_removal, region_growing, segment_plane,
         statistical_outlier_removal, voxel_downsample)
     from pointcloud_stitching_tpu_torch.ops import hull as HL
-    from pointcloud_stitching_tpu_torch.ops import sac as SAC
     from pointcloud_stitching_tpu_torch.runtime import (
         Codec, FakeCameraServer, Kind, recv_frame, stitch_cli, wire)
-    from pointcloud_stitching_tpu_torch.runtime import client as CL
     from pointcloud_stitching_tpu_torch.runtime import publisher as PUB
     from pointcloud_stitching_tpu_torch.tools import segment_cli
+    from pointcloud_stitching_tpu_torch.utils import prng
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
@@ -2515,14 +2548,19 @@ def analysis_phase(dev, kb, card) -> None:
     flag = pipe(d_rig).cloud
     del pipe
 
-    # (a) segment_plane on both clouds: the same draws on both devices,
-    # then the entry point on the card's own generator, timed
+    # (a) segment_plane on both clouds from key 0 on each device: the
+    # card's draws and plane against the CPU's, then timed
     planes = {}
     for tag, pc in (("113k", src), ("flagship", flag)):
-        idx = plane_draws(pc.mask, 0)
-        got = SAC._segment_plane_from_indices(pc, idx, PLANE_THR)
-        want = SAC._segment_plane_from_indices(cloud_to(pc, cpu), idx,
-                                               PLANE_THR)
+        key_d, key_c = prng.key(0, device=dev), prng.key(0)
+        p = pc.mask.to(torch.float32)
+        p = p / torch.clamp(p.sum(), min=1.0)
+        check(torch.equal(
+            prng.choice(key_d, p.shape[0], (RANSAC_M, 3), p=p).cpu(),
+            prng.choice(key_c, p.shape[0], (RANSAC_M, 3), p=p.cpu())),
+            f"(a) {tag}: the card's draws differ from the CPU's")
+        got = segment_plane(pc, PLANE_THR, key_d)
+        want = segment_plane(cloud_to(pc, cpu), PLANE_THR, key_c)
         m_err = float((got[0].cpu() - want[0]).abs().max())
         check(m_err <= 1e-5, f"(a) {tag}: CUDA model differs from the "
                              f"CPU's by {m_err}")
@@ -2533,9 +2571,7 @@ def analysis_phase(dev, kb, card) -> None:
         diff = (got[1].cpu() != want[1]).numpy()
         check(not (diff & ~edge).any(), f"(a) {tag}: inlier masks differ "
               f"at {int((diff & ~edge).sum())} points off the threshold")
-        gen = torch.Generator(device=dev)
-        run = lambda: segment_plane(pc, PLANE_THR,  # noqa: E731
-                                    gen.manual_seed(0))
+        run = lambda: segment_plane(pc, PLANE_THR, key_d)  # noqa: E731
         model, inl, cnt = run()
         ms = median_ms(run, 10)
         syncs = count_syncs(run)
@@ -2548,12 +2584,13 @@ def analysis_phase(dev, kb, card) -> None:
         if tag == "113k":
             line = disc_check(pc, PLANE_THR)
         planes[tag] = model
-        say(f"[12/14 analysis] {card}: (a) segment_plane {tag} "
+        say(f"[12/15 analysis] {card}: (a) segment_plane {tag} "
             f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
             f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
             f"all within the threshold{line}; {ms:.3f} ms per call "
-            f"(median of 10), {syncs} host syncs; on the same draws CUDA "
-            f"= CPU: model within {m_err:.2g}, inlier masks equal "
+            f"(median of 10), {syncs} host syncs; on key 0 CUDA = CPU: the "
+            f"same {RANSAC_M} x 3 draws, model within {m_err:.2g}, inlier "
+            f"masks equal "
             f"({int(edge.sum())} points within 1e-6 m of the threshold, "
             f"{int(diff.sum())} differ)")
 
@@ -2561,23 +2598,10 @@ def analysis_phase(dev, kb, card) -> None:
                for f in frames]
     cams = sum((["--camera", f"127.0.0.1:{srv.port}"] for srv in servers),
                [])
-    # stitch_cli's client keeps every live camera (CLI_STALE_S) and records
-    # how many cameras each snapshot took: (b) and (g) compare each frame
-    # with the direct call on all NCAM cameras
+    # (b) and (g) compare each frame with the direct call on all NCAM
+    # cameras
     live = []
-    real_init, real_snapshot = (CL.MulticameraClient.__init__,
-                                CL.MulticameraClient._snapshot)
-
-    def patient_init(self, *a, **kw):
-        real_init(self, *a, **{**kw, "stale_timeout": CLI_STALE_S})
-
-    def counted_snapshot(self, *a, **kw):
-        stage, n = real_snapshot(self, *a, **kw)
-        live.append(n)
-        return stage, n
-
-    CL.MulticameraClient.__init__ = patient_init
-    CL.MulticameraClient._snapshot = counted_snapshot
+    undo_client = patient_client(live)
     try:
         with tempfile.TemporaryDirectory() as tmp:
             # (b) stitch_cli --drop-plane against a run without the flag,
@@ -2593,7 +2617,7 @@ def analysis_phase(dev, kb, card) -> None:
                 kb.reset_launches()
                 live.clear()
                 with contextlib.redirect_stdout(io.StringIO()):
-                    m = stitch_cli.main(base + ["--save-dir", out] + extra)
+                    m = stitch_cli._run(base + ["--save-dir", out] + extra)
                 torch.cuda.synchronize()
                 check(live and min(live) == NCAM,
                       f"(b) {tag}: live cameras at each snapshot {live}")
@@ -2606,8 +2630,8 @@ def analysis_phase(dev, kb, card) -> None:
                 i_d.stack([i_d] * (NCAM - 1)),
                 np.tile(np.eye(4, dtype=np.float32), (NCAM, 1, 1)),
                 device=dev)(d_rig).cloud
-            model, _, cnt = segment_plane(
-                ref, PLANE_THR, torch.Generator(device=dev).manual_seed(0))
+            model, _, cnt = segment_plane(ref, PLANE_THR,
+                                          prng.key(0, device=dev))
             kept = extract_plane(ref, model, PLANE_THR)
             wants = {"without": ref.xyz[ref.mask].cpu().numpy(),
                      "--drop-plane": kept.xyz[kept.mask].cpu().numpy()}
@@ -2619,22 +2643,22 @@ def analysis_phase(dev, kb, card) -> None:
                     xyz, _ = load_ply(os.path.join(out, f))
                     check(np.array_equal(xyz, wants[tag]),
                           f"(b) {tag}: {f} differs from the direct call")
+                # one draw a frame: one threefry2x32 and one scan16
+                draws = DROP_FRAMES if tag == "--drop-plane" else 0
                 check(launches.get("segment_sum_from_flags") == DROP_FRAMES
                       and launches.get("nn_batched_prepared")
-                      == 5 * DROP_FRAMES, f"(b) {tag}: launches {launches}")
+                      == 5 * DROP_FRAMES
+                      and launches.get("threefry2x32", 0) == draws
+                      and launches.get("scan16", 0) == draws,
+                      f"(b) {tag}: launches {launches}")
                 parts.append(f"{tag}: fps {m.fps:.2f}, latency p50 "
                              f"{m.latency_ms(50):.2f} p99 "
                              f"{m.latency_ms(99):.2f} ms, {len(wants[tag])} "
-                             f"points saved, launches K1 "
-                             f"{launches.get('segment_sum_from_flags', 0)} K3 "
-                             f"{launches.get('nn_batched_prepared', 0)}")
-            check(runs["without"][1] == runs["--drop-plane"][1],
-                  "(b) --drop-plane changed the kernels' launches")
+                             f"points saved, launches {launches}")
             say(f"    (b) stitch_cli, {NCAM} x {H}x{W} snappy loopback, "
                 f"{DROP_FRAMES} frames, every saved cloud bitwise equal to "
-                f"the direct call (and segment_plane/extract_plane from a "
-                f"generator seeded 0, {int(cnt)} inliers): "
-                + "; ".join(parts))
+                f"the direct call (and segment_plane/extract_plane from "
+                f"key 0, {int(cnt)} inliers): " + "; ".join(parts))
 
             # (g) --publish-port with a subscriber, --view into a directory
             # (no display here) and --trace-dir, in one run; the publisher
@@ -2687,7 +2711,7 @@ def analysis_phase(dev, kb, card) -> None:
             try:
                 t = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
-                    m = stitch_cli.main(
+                    m = stitch_cli._run(
                         cams + ["--height", str(H), "--width", str(W),
                                 "--frames", str(G_FRAMES), "--print-every",
                                 "0", "--save-dir", os.path.join(tmp, "g"),
@@ -2731,8 +2755,7 @@ def analysis_phase(dev, kb, card) -> None:
                 f"trace.json {os.path.getsize(trace_file) / 2**20:.1f} MiB "
                 f"names segsum_flags_kernel (K1) and nn_batched_split (K3)")
     finally:
-        CL.MulticameraClient.__init__ = real_init
-        CL.MulticameraClient._snapshot = real_snapshot
+        undo_client()
         for srv in servers:
             srv.stop()
 
@@ -2907,38 +2930,26 @@ def analysis_phase(dev, kb, card) -> None:
         f"({int(big.sum())} points): {len(ch.faces)} faces, "
         f"{ch.volume * 1e3:.2f} L in {t_ch:.3f} s")
 
-    # (f) segment_cli on the 113k cloud, on the card and on the CPU, both
-    # drawing the same planes (from a CPU generator seeded per plane)
-    ops_mod = sys.modules["pointcloud_stitching_tpu_torch.ops"]
-    real_sp = ops_mod.segment_plane
-    draws = [0]
-
-    def same_draws(pc, threshold, generator, **kw):
-        idx = plane_draws(pc.mask, draws[0])
-        draws[0] += 1
-        return SAC._segment_plane_from_indices(pc, idx, threshold)
-
+    # (f) segment_cli on the 113k cloud, on the card and on the CPU: both
+    # split key 0 as the JAX CLI does, so both draw the same planes
     with tempfile.TemporaryDirectory() as tmp:
         ply = os.path.join(tmp, "scene.ply")
         save_ply(ply, xyz[valid])
         outs = {}
-        ops_mod.segment_plane = same_draws
         saved_env = os.environ.get("PCS_PLATFORM")
         try:
             for tag, plat in (("card", dev.type), ("cpu", "cpu")):
                 os.environ["PCS_PLATFORM"] = plat
-                draws[0] = 0
                 out = os.path.join(tmp, tag)
                 buf = io.StringIO()
                 t = time.perf_counter()
                 with contextlib.redirect_stdout(buf):
-                    n_cl = segment_cli.main([ply, out, "--drop-plane",
+                    n_cl = segment_cli._run([ply, out, "--drop-plane",
                                              str(PLANE_THR), "--obb",
                                              "--hull"])
                 outs[tag] = (out, buf.getvalue(), time.perf_counter() - t,
                              n_cl)
         finally:
-            ops_mod.segment_plane = real_sp
             if saved_env is None:
                 os.environ.pop("PCS_PLATFORM", None)
             else:
@@ -2960,6 +2971,7 @@ def analysis_phase(dev, kb, card) -> None:
             f"{outs['card'][2]:.2f} s on the card, {outs['cpu'][2]:.2f} s "
             f"on the CPU; {outs['card'][1].splitlines()[1]}")
     say(f"    phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return runs["--drop-plane"][1], flag
 
 
 # --- phase 13: the sharded port (parallel/) ----------------------------------
@@ -3430,7 +3442,7 @@ def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
         a = one["stitch"][i]
         name = ("make_shardmap_stitch" if kind == "shardmap"
                 else "make_sharded_stitch")
-        say(f"[13/14 parallel] (a) {labels[0]} {card}: {name} "
+        say(f"[13/15 parallel] (a) {labels[0]} {card}: {name} "
             f"{tag}: {SHARD_FRAMES} frames track mode, points_out "
             f"{a['pts'][0]}..{a['pts'][-1]}; 'auto' == 'torch' bit for "
             f"bit; |ext - stitch_step| {a['d_unsharded']:.3g} (points_out "
@@ -3545,8 +3557,7 @@ JAX_ORDER = {
                       "max_iterations", "transformation_epsilon",
                       "max_corr_dist", "query_tile", "ref_tile",
                       "trim_fraction", "prune"),
-    # JAX's "key" is the port's "generator"
-    "register_global": ("src", "dst", "generator", "num_starts",
+    "register_global": ("src", "dst", "key", "num_starts",
                         "coarse_leaf", "coarse_capacity",
                         "coarse_iterations", "coarse_corr_dist",
                         "coarse_trim", "query_tile", "ref_tile", "refine",
@@ -3639,6 +3650,7 @@ def positional_calls(dev):
     from pointcloud_stitching_tpu_torch.ops import (
         icp, icp_batched, icp_converge, icp_point_to_plane_batched,
         nearest_neighbors, voxel_downsample)
+    from pointcloud_stitching_tpu_torch.utils import prng
 
     sc = registration_scene(dev)
     src, dst = sc.src, sc.dst
@@ -3656,9 +3668,6 @@ def positional_calls(dev):
     cfg = flagship_cfg(StitchConfig)
     depths = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
     inf = float("inf")
-
-    def gen():
-        return torch.Generator(device=dev).manual_seed(0)
 
     def two_frames(*a, **k):
         pipe = StitchingPipeline(*a, **k)
@@ -3706,8 +3715,8 @@ def positional_calls(dev):
             src, dst, sc.picks, sc.picks, True, 50, 1e-8, 0.25, 1024, 4096,
             0.0, True)),
         "register_global": (register_global, (
-            src, dst, None, 4, 0.05, 1024, 15, None, 0.1, 512, 1024, True,
-            0, 8)),
+            src, dst, prng.key(0, device=dev), 4, 0.05, 1024, 15, None, 0.1,
+            512, 1024, True, 0, 8)),
         "voxel_downsample": (voxel_downsample, (
             src, 0.01, REG_CAP, "auto", False, "auto")),
         "voxel_map_update": (two_updates, (
@@ -3720,11 +3729,7 @@ def positional_calls(dev):
     calls = []
     for name, (fn, args) in rows.items():
         kw = dict(zip(JAX_ORDER[name], args))
-        if name == "register_global":
-            # a fresh generator, seeded alike, for each call
-            pos = (lambda fn=fn, a=args: fn(*a[:2], gen(), *a[3:]))
-            key = (lambda fn=fn, kw=kw: fn(**{**kw, "generator": gen()}))
-        elif name == "voxel_map_update":
+        if name == "voxel_map_update":
             # two_updates passes the map and the cloud itself
             pos = (lambda fn=fn, a=args: fn(*a[2:]))
             key = (lambda fn=fn, kw=kw: fn(**{
@@ -3759,6 +3764,225 @@ def bitwise_equal(a, b) -> bool:
         if isinstance(x, torch.Tensor) else x == y for x, y in zip(fa, fb))
 
 
+# --- phase 15: the random draws ----------------------------------------------
+# jax.random's own values for key(5), made with JAX 0.9.0 on the CPU
+# (jax_threefry_partitionable on, its default, and 32-bit mode, as the JAX
+# package runs): bits (8), split (3 keys), uniform (6, as int32 bit
+# patterns), randint (8 in [0, randint_hi)), the sum and last word of
+# 262,144 bits, and choice over choice_n slots (p uniform on the slots
+# whose index is not a multiple of choice_mod, shape (choice_h, 3)): its
+# first indices and their sum. tests/test_torch_prng.py holds these against
+# live jax.random, so they cannot go stale.
+JAX_DRAWS = {
+    "seed": 5,
+    "bits": [2003086470, 3955154020, 3160280976, 408371909, 3927703089,
+             2910825445, 72334161, 232576969],
+    "split": [[2724472204, 3573582090], [202567368, 3886822060],
+              [3594430910, 1784718894]],
+    "uniform": [1055836504, 1064025820, 1060920846, 1036171792, 1063918590,
+                1059946410],
+    "randint_hi": 100003,
+    "randint": [64884, 33892, 13004, 8385, 58791, 23223, 57780, 28956],
+    "bits_n": 262144,
+    "bits_sum": 562713204571296,
+    "bits_last": 2002440075,
+    "choice_n": 262144,
+    "choice_mod": 7,
+    "choice_h": 1024,
+    "choice_head": [139885, 20740, 69255, 237218, 22416, 84481, 257728,
+                    247948, 209394, 148602, 261939, 160686],
+    "choice_sum": 407417054,
+}
+# H100 SXM int32 instructions per second: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz (the Hopper architecture white paper)
+INT32_INSTR_PER_S = 132 * 64 * 1.98e9
+# integer instructions per threefry2x32 counter: 20 rounds of add, funnel
+# shift and xor, 5 key injections of 3 adds, the counter and key set-up
+THREEFRY_OPS = 80
+FPFH_LOGITS = 1024       # register_global's skeleton (coarse_capacity)
+
+
+def draw_calls(dev, p) -> dict:
+    """The draws the paths make, by name, as calls: ``choice`` over ``p``
+    (segment_plane's), ``normal(39, 4)`` (register_global's 64 starts),
+    ``categorical`` (64, 3) over FPFH_LOGITS logits and ``randint`` (the
+    FPFH starts), ``split``."""
+    import torch
+    from pointcloud_stitching_tpu_torch.utils import prng
+    ks = prng.split(prng.key(0, device=dev))
+    logits = torch.where(torch.arange(FPFH_LOGITS, device=dev) % 5 != 0,
+                         0.0, -1e9)
+    return {
+        f"choice ({RANSAC_M}, 3) of {p.shape[0]}": lambda: prng.choice(
+            ks[0], p.shape[0], (RANSAC_M, 3), p=p),
+        "normal (39, 4)": lambda: prng.normal(ks[0], (39, 4)),
+        f"categorical (64, 3) of {FPFH_LOGITS}": lambda: prng.categorical(
+            ks[1], logits, shape=(64, 3)),
+        "randint (64, 3)": lambda: prng.randint(ks[1], (64, 3), 0, 8),
+        "split": lambda: prng.split(ks[0])}
+
+
+def draw_profile(fn, kb, reps: int = 20):
+    """(device ms, ms per call back to back, kernels, of which the port's,
+    wrapper launches) of one draw: device time with the queue prefilled,
+    the host-bound time without, torch.profiler's count of the card's
+    kernels per draw (the port's own by name), and the launch counters of
+    one draw."""
+    _, _, ops, top = device_profile(fn, calls=5)
+    ours = sum(n for _, n, name in top
+               if any(k in name for k in ("threefry2x32", "scan16",
+                                          "addback")))
+    kb.reset_launches()
+    fn()
+    launches = dict(kb.LAUNCHES)
+    return (cuda_ms(fn, reps), cuda_ms(fn, reps, prefill=False), ops, ours,
+            launches)
+
+
+def prng_phase(dev, kb, report, kernels, card, drop_launches: dict,
+               flag) -> None:
+    """Phase 15: the random draws (``utils/prng.py``) on the card.
+
+    (a) both kernels equal their plain versions bit for bit: threefry2x32
+    at 1, 3,072 (segment_plane's 1024 x 3 draw) and 262,144 counters, both
+    outputs, and the scan of the flagship's 262,144-slot mask; (b) the
+    card's bits, split, uniform, randint and choice equal JAX's literal
+    values (JAX_DRAWS), its uniform on a range, normal and categorical
+    equal the CPU's on the same key, and a CPU key with the flagship
+    cloud draws on the card; (c) the kernels timed in turns with their plain
+    versions (their launches are phase 12 (b)'s, the --drop-plane stitch:
+    one of each per frame), and ms and device operations per draw of
+    choice over 262,144 slots, normal(39, 4) (register_global's 64
+    starts) and categorical over phase 11's FPFH logits."""
+    import torch
+    from pointcloud_stitching_tpu_torch.kernels import prng as KP
+    from pointcloud_stitching_tpu_torch.ops import segment_plane
+    from pointcloud_stitching_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    jd = JAX_DRAWS
+    k5 = prng.key(jd["seed"], device=dev)
+    m3 = 3 * RANSAC_M
+
+    # (a) the kernels against their plain versions
+    for n in (1, m3, jd["bits_n"]):
+        for pairs in (False, True):
+            got = KP.threefry2x32(k5, n, pairs, impl="cuda")
+            want = KP.threefry2x32(k5, n, pairs, impl="torch")
+            check(torch.equal(got, want), f"(a) threefry2x32 at {n} "
+                  f"({'pairs' if pairs else 'bits'}) differs from plain")
+    p = flag.mask.to(torch.float32)
+    p = p / torch.clamp(p.sum(), min=1.0)
+    c = KP.scan16(p, impl="cuda")
+    c_plain = KP.scan16(p, impl="torch")
+    check(torch.equal(c, c_plain), "(a) scan16 differs from plain")
+    check(torch.equal(c, KP.scan16(p.cpu()).to(dev)),
+          "(a) scan16 on the card differs from the CPU's")
+    lib_cumsum = torch.cumsum(p, 0)
+    say(f"[15/15 draws] {card}: (a) threefry2x32 bit for bit plain at 1, "
+        f"{m3} and {jd['bits_n']} counters (bits and pairs); scan16 of the "
+        f"flagship's {p.shape[0]}-slot mask ({int(flag.mask.sum())} valid) "
+        f"bit for bit plain and the CPU, c[-1] = {float(c[-1]):.9g} "
+        f"(torch.cumsum {float(lib_cumsum[-1]):.9g}, max |diff| "
+        f"{float((c - lib_cumsum).abs().max()):.3g})")
+
+    # (b) the card's draws against JAX's values
+    n = jd["choice_n"]
+    mask = (torch.arange(n, device=dev) % jd["choice_mod"] != 0).to(
+        torch.float32)
+    idx = prng.choice(k5, n, (jd["choice_h"], 3), p=mask / mask.sum())
+    big = prng.bits(k5, (jd["bits_n"],))
+    got = {
+        "bits": prng.bits(k5, (len(jd["bits"]),)).tolist(),
+        "split": prng.split(k5, len(jd["split"])).tolist(),
+        "uniform": prng.uniform(k5, (len(jd["uniform"]),)).view(
+            torch.int32).tolist(),
+        "randint": prng.randint(k5, (len(jd["randint"]),), 0,
+                                jd["randint_hi"]).tolist(),
+        "bits_sum": int(big.sum()), "bits_last": int(big[-1]),
+        "choice_head": idx.reshape(-1)[:len(jd["choice_head"])].tolist(),
+        "choice_sum": int(idx.sum())}
+    for name, value in got.items():
+        check(value == jd[name], f"(b) {name} on the card is {value}, "
+              f"JAX's is {jd[name]}")
+    say(f"    (b) the card's bits, split, uniform, randint, {jd['bits_n']} "
+        f"bits and choice ({jd['choice_h']} x 3 of {n}) equal JAX's values "
+        "for key(5)")
+    # the draws that go through float ops: the card's against the CPU's on
+    # the same key (uniform on a range bit for bit: its multiply-add is
+    # made in float64; normal within 1e-5 relative, the bound against
+    # JAX, as CUDA's erfinv may differ by ulps; categorical's indices)
+    cpu = torch.device("cpu")
+    k5c = prng.key(jd["seed"])
+    u_g = prng.uniform(k5, (jd["bits_n"],), -2.5, 7.0)
+    u_c = prng.uniform(k5c, (jd["bits_n"],), -2.5, 7.0)
+    check(torch.equal(u_g.cpu().view(torch.int32), u_c.view(torch.int32)),
+          "(b) uniform on [-2.5, 7) on the card differs from the CPU's in "
+          f"{int((u_g.cpu() != u_c).sum())} of {jd['bits_n']}")
+    q_g, q_c = prng.normal(k5, (39, 4)).cpu(), prng.normal(k5c, (39, 4))
+    q_rel = float(((q_g - q_c).abs() / q_c.abs().clamp(min=1e-6)).max())
+    check(q_rel <= 1e-5, f"(b) normal (39, 4): card vs CPU {q_rel:.3g} "
+                         "relative")
+    logits = torch.where(torch.arange(FPFH_LOGITS, device=dev) % 5 != 0,
+                         0.0, -1e9)
+    c_g = prng.categorical(k5, logits, shape=(64, 3)).cpu()
+    c_c = prng.categorical(k5c, logits.cpu(), shape=(64, 3))
+    check(torch.equal(c_g, c_c), "(b) categorical (64, 3): the card's "
+          f"indices differ from the CPU's at {int((c_g != c_c).sum())}")
+    # a key made on the CPU, with the cloud on the card: the draw runs on
+    # the card (the key moves to the cloud), as one from a card key
+    kb.reset_launches()
+    got_c = segment_plane(flag, PLANE_THR, prng.key(0, device=cpu))
+    moved = dict(kb.LAUNCHES)
+    want_c = segment_plane(flag, PLANE_THR, prng.key(0, device=dev))
+    check(moved.get("threefry2x32") == 1 and moved.get("scan16") == 1
+          and got_c[0].device == flag.xyz.device
+          and torch.equal(got_c[0], want_c[0])
+          and torch.equal(got_c[1], want_c[1]),
+          f"(b) segment_plane from a CPU key: launches {moved}")
+    say(f"    (b) on the same key the card's uniform on [-2.5, 7) "
+        f"({jd['bits_n']}) and categorical (64, 3) of {FPFH_LOGITS} equal "
+        f"the CPU's, normal (39, 4) within {q_rel:.3g} relative; "
+        "segment_plane from a CPU key draws on the card (one threefry2x32, "
+        "one scan16) and equals a card key's plane")
+
+    # (c) the kernels in turns with their plain versions, at the main
+    # path's shapes: segment_plane's 3,072 counters, the 262,144-slot scan
+    for name, fn in (("threefry2x32", lambda impl: KP.threefry2x32(
+                         k5, m3, impl=impl)),
+                     ("scan16", lambda impl: KP.scan16(p, impl=impl))):
+        launches = drop_launches.get(name, 0)
+        check(launches > 0, f"(c) the --drop-plane run launched no {name}: "
+              f"{drop_launches}")
+        times = time_in_turns(lambda fn=fn: fn("cuda"),
+                              lambda fn=fn: fn("torch"))
+        if name == "threefry2x32":
+            # the key read once, one int64 word written a counter
+            report(name, "pointcloud_stitching_tpu_torch/csrc/prng.cu",
+                   "pointcloud_stitching_tpu/ops/sac.py:115", 0.0, times,
+                   16 + 8 * m3, THREEFRY_OPS * m3, rate=INT32_INSTR_PER_S)
+        else:
+            # each float read once and written once; ~2 adds an element
+            # (the blocks' inner sums, the add-back)
+            lib_ms = cuda_ms(lambda: torch.cumsum(p, 0), 20)
+            report(name, "pointcloud_stitching_tpu_torch/csrc/prng.cu",
+                   "pointcloud_stitching_tpu/ops/sac.py:115",
+                   float((c - c_plain).abs().max()), times, 8 * p.numel(),
+                   2 * p.numel(), library_ms=lib_ms)
+        kernels[name]["launches"] = launches
+
+    # ms and device operations per draw
+    parts = []
+    for name, fn in draw_calls(dev, p).items():
+        dev_ms, call_ms, ops, ours, launches = draw_profile(fn, kb)
+        parts.append(f"{name}: {dev_ms:.4f} ms device, {call_ms:.4f} ms per "
+                     f"call back to back, {ops:.0f} kernels in "
+                     f"torch.profiler ({ours:.0f} of them the port's), "
+                     f"wrapper launches {launches}")
+    say(f"    (c) per draw ({card}): " + "; ".join(parts))
+    say(f"    phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def commands_phase(dev, kb, card) -> None:
     """Phase 14: the port's own commands. (a) the loopback cluster
     launcher at the flagship rig, traced; (b) every entry point whose
@@ -3791,7 +4015,7 @@ def commands_phase(dev, kb, card) -> None:
                   f"want {per_frame} per frame")
         trace_mib = os.path.getsize(trace_file) / 2 ** 20
     plain = run_cluster(dev, "snappy", ["--codec", "snappy"], "")
-    say(f"[14/14 commands] {card}: (a) scripts/local_cluster_torch.py "
+    say(f"[14/15 commands] {card}: (a) scripts/local_cluster_torch.py "
         f"--cameras {NCAM} --frames {CLUSTER_FRAMES} at {W}x{H}, servers "
         f"and stitch_cli as processes on loopback: traced (zlib, "
         f"--save-dir, --trace-dir) {traced['frames']} frames, fps "

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("segment_reduce.cu", "nn.cu", "patch_gather.cu")
+SOURCES = ("segment_reduce.cu", "nn.cu", "patch_gather.cu", "prng.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpcs_kernels.so"
@@ -130,6 +130,7 @@ def build() -> BuildInfo:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes; each returns a cudaError_t as int
 _SIGNATURES = {
     # img, h, w, v0, u0, iv, iu, nb, out, stream
@@ -146,6 +147,10 @@ _SIGNATURES = {
     # blocks_per_sm, idx, d2, keys(u64), meta(i32), stream
     "pcs_nn_batched_ranged": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                               _P, _P, _P, _P),
+    # key(i64), n, pairs, out(i64), stream
+    "pcs_threefry2x32": (_P, _L, _I, _P, _P),
+    # x, n, out, scratch, stream
+    "pcs_scan16": (_P, _L, _P, _P, _P),
 }
 
 _lib = None
@@ -173,6 +178,8 @@ def library() -> ctypes.CDLL:
                             ("pcs_nn_ranged_grid", 1)):
             getattr(lib, name).argtypes = [ctypes.c_int] * nargs
             getattr(lib, name).restype = ctypes.c_int
+        lib.pcs_scan16_scratch.argtypes = [_L]
+        lib.pcs_scan16_scratch.restype = _L
         lib.pcs_error_string.argtypes = [ctypes.c_int]
         lib.pcs_error_string.restype = ctypes.c_char_p
         _lib = lib

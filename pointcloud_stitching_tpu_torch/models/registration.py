@@ -10,9 +10,11 @@ polished at full resolution.
 
 ``kernel_impl`` ('auto' | 'cuda' | 'torch') routes every kernel of the
 path (K1 in the skeleton voxel pass, K3 in the multi-start ICP and the
-coarse NN pass, K4 in the pruned refinement). ``fpfh_starts`` adds
-hypotheses seeded from FPFH descriptor matches (``ops.fpfh``), sampled
-with the caller's ``torch.Generator``.
+coarse NN pass, K4 in the pruned refinement, the random draws' threefry2x32
+and scan). ``fpfh_starts`` adds hypotheses seeded from FPFH descriptor
+matches (``ops.fpfh``). The random draws come from the caller's key
+through ``utils.prng``, at the JAX package's places: the same key gives
+JAX's starts.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from ..ops.icp import ICPResult, icp_batched, icp_converge
 from ..ops.kabsch import kabsch
 from ..ops.mls import estimate_normals
 from ..ops.voxel import voxel_downsample
+from ..utils import prng
 from ..utils.types import PointCloud, scalar
 
 
@@ -170,32 +173,30 @@ def _fpfh_hypotheses(cs: PointCloud, cd: PointCloud, feats,
 
 
 def _fpfh_start_transforms(cs: PointCloud, cd: PointCloud,
-                           generator: torch.Generator, n_starts: int,
+                           key: torch.Tensor, n_starts: int,
                            leaf: float, k_corr: int = 8,
                            normal_radius: Optional[float] = None,
-                           feature_radius: Optional[float] = None
-                           ) -> torch.Tensor:
+                           feature_radius: Optional[float] = None,
+                           impl: str = "auto") -> torch.Tensor:
     """Descriptor-seeded rigid hypotheses [n_starts, 4, 4].
 
     The correspondence half of ``pcl::SampleConsensusInitialAlignment``:
     ``n_starts`` source triples drawn uniformly from the valid descriptors
-    (the JAX package's categorical over logits 0 / -1e9: with no valid
-    descriptor the draw stays uniform over all), each point matched to one
-    of its ``k_corr`` nearest target descriptors at random, then Kabsch.
-    The hypotheses join register_global's scoring pool, so a bad triple
-    simply loses. Draws come from ``generator`` on its own device.
+    (a categorical over logits 0 / -1e9: with no valid descriptor the draw
+    stays uniform over all), each point matched to one of its ``k_corr``
+    nearest target descriptors at random, then Kabsch. The hypotheses join
+    register_global's scoring pool, so a bad triple simply loses. The
+    draws are the JAX package's: ``k1, k2 = split(key)``, the triples a
+    ``categorical`` from k1 and the matches a ``randint`` from k2, on the
+    clouds' device (``impl`` routes the draws' kernels).
     """
     feats = _fpfh_features(cs, cd, leaf, k_corr, normal_radius,
                            feature_radius)
-    gdev = generator.device
+    k1, k2 = prng.split(prng.key_on(key, cs.xyz.device), impl=impl)
     logits = torch.where(feats[0], 0.0, -1e9)
-    si = torch.multinomial(torch.softmax(logits, 0).to(gdev), 3 * n_starts,
-                           replacement=True, generator=generator)
-    pick = torch.randint(0, k_corr, (n_starts, 3), generator=generator,
-                         device=gdev)
-    dev = cs.xyz.device
-    return _fpfh_hypotheses(cs, cd, feats, si.reshape(n_starts, 3).to(dev),
-                            pick.to(dev))
+    si = prng.categorical(k1, logits, shape=(n_starts, 3), impl=impl)
+    pick = prng.randint(k2, (n_starts, 3), 0, k_corr, impl=impl)
+    return _fpfh_hypotheses(cs, cd, feats, si, pick)
 
 
 def _centroid(pc: PointCloud, w: torch.Tensor) -> torch.Tensor:
@@ -203,7 +204,7 @@ def _centroid(pc: PointCloud, w: torch.Tensor) -> torch.Tensor:
 
 
 def register_global(src: PointCloud, dst: PointCloud,
-                    generator: torch.Generator,
+                    key: torch.Tensor,
                     num_starts: int = 64,
                     coarse_leaf: float = 0.05,
                     coarse_capacity: int = 1024,
@@ -219,8 +220,9 @@ def register_global(src: PointCloud, dst: PointCloud,
 
     Parallel multi-start ICP: the hypotheses are [identity] + [the 24
     proper rotations aligning the two clouds' PCA eigenbases] + random
-    rotations (normalised 4-D Gaussians drawn from ``generator``, on the
-    generator's device), each centred by a centroid-matching translation.
+    rotations (normalised 4-D Gaussians, ``prng.normal`` drawn from
+    ``key`` on the clouds' device as JAX draws them), each centred by a
+    centroid-matching translation.
     All of them run as one batched ICP on voxel skeletons of
     ``coarse_capacity`` points (the leaf starts at ``coarse_leaf`` and
     coarsens until both clouds fit: a saturated pass would keep
@@ -229,10 +231,12 @@ def register_global(src: PointCloud, dst: PointCloud,
     tie-break — seeds a full-resolution ``icp_converge`` (``refine_kw``;
     ``max_corr_dist`` defaults to twice the fitted leaf).
 
-    The parameters sit at the JAX package's positions, with
-    ``generator`` in place of its ``key`` and the port's ``kernel_impl``
-    after them all; ``query_tile``/``ref_tile`` are taken and ignored (see
-    ops.icp). With ``num_starts <= 25`` no random rotation is used. Like any
+    The parameters sit at the JAX package's positions, with the port's
+    ``kernel_impl`` after them all; ``query_tile``/``ref_tile`` are taken
+    and ignored (see ops.icp). ``key`` is a ``utils.prng`` key
+    (``prng.key(seed)``), split as JAX splits it, so the same key gives
+    the JAX package's starts. With ``num_starts <= 25`` no random rotation
+    is used (one is drawn all the same, as JAX draws it). Like any
     geometry-only method it can lock onto a symmetry of the scene: check
     ``icp.mean_error`` / ``num_inliers``. Where geometry alone is
     ambiguous, ``fpfh_starts > 0`` appends that many FPFH-correspondence
@@ -253,9 +257,11 @@ def register_global(src: PointCloud, dst: PointCloud,
     dev = src.xyz.device
     ws = cs.mask.to(torch.float32)
     wd = cd.mask.to(torch.float32)
-    n_rand = max(num_starts - 25, 1)
-    q = torch.randn((n_rand, 4), generator=generator,
-                    device=generator.device).to(dev)
+    key = prng.key_on(key, dev)
+    fkey = None
+    if fpfh_starts > 0:
+        key, fkey = prng.split(key, impl=kernel_impl)
+    q = prng.normal(key, (max(num_starts - 25, 1), 4), impl=kernel_impl)
     vs = _pca_axes(cs.xyz, ws)
     vd = _pca_axes(cd.xyz, wd)
     align = torch.from_numpy(_ALIGN24).to(dev)
@@ -270,7 +276,8 @@ def register_global(src: PointCloud, dst: PointCloud,
     init_T[:, :3, 3] = t
     if fpfh_starts > 0:
         init_T = torch.cat([init_T, _fpfh_start_transforms(
-            cs, cd, generator, fpfh_starts, coarse_leaf, fpfh_k_corr)])
+            cs, cd, fkey, fpfh_starts, coarse_leaf, fpfh_k_corr,
+            impl=kernel_impl)])
         m = init_T.shape[0]
 
     bs = PointCloud(xyz=cs.xyz.expand(m, -1, -1), mask=cs.mask.expand(m, -1))

@@ -8,9 +8,10 @@ and a fixed number of least-squares refits polish it (the inliers'
 centroid and the smallest eigenvector of their 3x3 scatter; PCL's
 ``setOptimizeCoefficients(true)``).
 
-The draws come from the caller's ``torch.Generator`` (the JAX package takes
-a key), so ``segment_plane`` draws and ``_segment_plane_from_indices`` does
-the rest; a parity test feeds the latter the JAX package's own indices.
+The hypotheses are drawn from the caller's key with ``utils.prng.choice``,
+``jax.random.choice``'s draw bit for bit: the same key gives the JAX
+package's indices, and so its plane. ``segment_plane`` draws and
+``_segment_plane_from_indices`` does the rest.
 
 Every product here is elementwise (the point-plane distance is
 ``n_x x + n_y y + n_z z + d``), and the hypotheses and the refit are
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import prng
 from ..utils.linalg import eigh
 from ..utils.types import PointCloud, scalar
 from .search import dot3
@@ -102,7 +104,7 @@ def _segment_plane_from_indices(pc: PointCloud, idx: torch.Tensor,
             torch.where(good, count, 0))
 
 
-def segment_plane(pc: PointCloud, threshold, generator: torch.Generator,
+def segment_plane(pc: PointCloud, threshold, key: torch.Tensor,
                   num_hypotheses: int = 1024, refine_iters: int = 2,
                   chunk: int = 16384):
     """Find the dominant plane: (model [4], inlier_mask [N], count).
@@ -111,9 +113,10 @@ def segment_plane(pc: PointCloud, threshold, generator: torch.Generator,
       pc: cloud [N, 3] + mask. A cloud that cannot support a plane (< 3
         inliers) gives the zero model and count 0.
       threshold: inlier point-to-plane distance (meters).
-      generator: the ``torch.Generator`` the hypotheses are drawn from
-        (deterministic given its state and the cloud); the draw runs on
-        the generator's device.
+      key: a ``utils.prng`` key (``prng.key(seed)``); the hypotheses are
+        ``jax.random.choice``'s draw from it, so the same key gives the
+        JAX package's plane. The draw runs on the cloud's device, wherever
+        the key was made.
       num_hypotheses: minimal-sample planes drawn and scored together;
         1024 finds a plane of >= 20% of the points with > 99.9%.
       refine_iters: least-squares refits of the winner.
@@ -121,15 +124,13 @@ def segment_plane(pc: PointCloud, threshold, generator: torch.Generator,
     The model is (nx, ny, nz, d) with |n| = 1 and n . p + d = 0 on the
     plane (PCL's ModelCoefficients).
     """
+    # valid points are drawn uniformly, invalid slots never; an empty
+    # cloud's all-zero p draws index 0 (and then scores nothing)
     p = pc.mask.to(torch.float32)
-    # an empty cloud draws uniformly (and then scores nothing): multinomial
-    # refuses an all-zero distribution, and a host test would sync
-    p = torch.where(p.sum() > 0, p, 1.0)
-    idx = torch.multinomial(p.to(generator.device), 3 * num_hypotheses,
-                            replacement=True, generator=generator)
+    p = p / torch.clamp(p.sum(), min=1.0)
+    idx = prng.choice(key, p.shape[0], (num_hypotheses, 3), p=p)
     return _segment_plane_from_indices(
-        pc, idx.view(num_hypotheses, 3), threshold,
-        refine_iters=refine_iters, chunk=chunk)
+        pc, idx, threshold, refine_iters=refine_iters, chunk=chunk)
 
 
 def extract_plane(pc: PointCloud, model: torch.Tensor, threshold,

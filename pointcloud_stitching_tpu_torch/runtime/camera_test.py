@@ -60,7 +60,9 @@ def run(host: str, port: int, frames: int, deproject: bool = False,
     return metrics
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """The command: stream, print the metrics, exit status 0 (``run``
+    returns them)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
@@ -68,10 +70,9 @@ def main(argv=None):
     ap.add_argument("--deproject", action="store_true",
                     help="also deproject each frame on the device")
     args = ap.parse_args(argv)
-    m = run(args.host, args.port, args.frames, args.deproject)
-    print(m)
-    return m
+    print(run(args.host, args.port, args.frames, args.deproject))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -150,12 +150,18 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """The command: stitch the cameras' frames, then exit status 0 (the
+    run's ``FrameMetrics`` come from ``_run``, for callers that want
+    them)."""
+    _run(argv)
+    return 0
+
+
+def _run(argv=None):
     args = _parser().parse_args(argv)
 
     import dataclasses
-
-    import torch
 
     from ..io.calio import (discover_cals, discover_intrinsics, load_cals,
                             load_intrinsics_stack)
@@ -163,6 +169,7 @@ def main(argv=None):
     from ..models.stitcher import StitchingPipeline
     from ..utils.config import StitchConfig
     from ..ops import extract_plane, segment_plane
+    from ..utils import prng
     from ..utils.platform import platform_device, set_full_fp32_matmul
     from ..utils.profiling import trace
     from ..utils.types import Intrinsics
@@ -355,15 +362,13 @@ def main(argv=None):
         else:
             view.apply_command(cmd)
 
-    drop_gen = None
-    if args.drop_plane is not None:
-        # one generator on the device, reseeded to 0 every frame: each
-        # frame's plane is deterministic (the JAX CLI uses one fixed key)
-        drop_gen = torch.Generator(device=dev)
+    # one key on the device, made once and used for every frame, as the
+    # JAX CLI uses its fixed key(0): each frame draws JAX's hypotheses
+    drop_key = prng.key(0, device=dev) if args.drop_plane is not None \
+        else None
 
     def drop_plane(out):
-        model, _, _ = segment_plane(out.cloud, args.drop_plane,
-                                    drop_gen.manual_seed(0))
+        model, _, _ = segment_plane(out.cloud, args.drop_plane, drop_key)
         return out._replace(cloud=extract_plane(out.cloud, model,
                                                 args.drop_plane))
 
@@ -459,7 +464,7 @@ def main(argv=None):
         tsdf_state["frames"] += 1
 
     def on_frame(i, out):
-        if drop_gen is not None:
+        if drop_key is not None:
             # the plane's inliers leave everything downstream (save,
             # publish, view, map)
             out = drop_plane(out)
@@ -520,4 +525,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -33,7 +33,14 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """The command: mesh the input, then exit status 0 (the face count comes
+    from ``_run``, for callers that want it)."""
+    _run(argv)
+    return 0
+
+
+def _run(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("depth", help="[H,W] or [T,H,W] uint16 depth .npy, or a "
                                   "voxel-map / TSDF checkpoint .npz")
@@ -165,4 +172,4 @@ def _mesh_map(args, dev):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

@@ -69,13 +69,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import numpy as np
-    import torch
 
     from pointcloud_stitching_tpu_torch.io import load_pcd, load_ply
     from pointcloud_stitching_tpu_torch.models import (register_global,
                                                        register_pair,
                                                        write_cal)
     from pointcloud_stitching_tpu_torch.ops import voxel_downsample
+    from pointcloud_stitching_tpu_torch.utils import prng
     from pointcloud_stitching_tpu_torch.utils.platform import (
         platform_device, set_full_fp32_matmul)
     from pointcloud_stitching_tpu_torch.utils.types import PointCloud, round_up
@@ -97,7 +97,7 @@ def main(argv=None):
           flush=True)
 
     if args.global_init:
-        res = register_global(src, dst, torch.Generator().manual_seed(0),
+        res = register_global(src, dst, prng.key(0, device=dev),
                               num_starts=args.starts,
                               fpfh_starts=args.fpfh_starts,
                               coarse_leaf=args.coarse_leaf,

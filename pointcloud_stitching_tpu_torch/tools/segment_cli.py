@@ -16,10 +16,10 @@ Usage:
       [--smooth-angle 20 [--max-curvature 0.02]] [--obb] [--hull]
 
 The device comes from PCS_PLATFORM: unset or ``cuda`` runs on the first
-GPU (and fails without one), ``cpu`` runs on the CPU. ``--seed`` seeds the
-``torch.Generator`` the planes draw from, one plane after another, so a
-run is deterministic per seed and device (the JAX CLI splits a key: the
-draws differ between the two).
+GPU (and fails without one), ``cpu`` runs on the CPU. ``--seed`` makes the
+key the planes draw from (``utils.prng.key``), split once before each
+plane as the JAX CLI splits its key: the same seed removes the same
+planes in both packages.
 """
 from __future__ import annotations
 
@@ -27,7 +27,14 @@ import argparse
 import os
 
 
-def main(argv=None):
+def main(argv=None) -> int:
+    """The command: segment the cloud, then exit status 0 (the cluster
+    count comes from ``_run``, for callers that want it)."""
+    _run(argv)
+    return 0
+
+
+def _run(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("cloud", help="input .ply/.pcd")
     ap.add_argument("out_dir", help="output directory (cluster_%%02d.ply)")
@@ -87,20 +94,19 @@ def main(argv=None):
                          "(pcl::ConcaveHull setAlpha role; ALPHA = "
                          "circumradius bound in meters); implies --hull")
     ap.add_argument("--seed", type=int, default=0,
-                    help="plane-RANSAC generator seed (deterministic per "
-                         "seed)")
+                    help="plane-RANSAC key (deterministic per seed)")
     args = ap.parse_args(argv)
     if args.hull_alpha is not None:
         args.hull = True
 
     import numpy as np
-    import torch
 
     from ..io import load_pcd, load_ply
     from ..io.plyio import save_mesh, save_ply
     from ..ops import (cluster_stats, concave_hull, convex_hull,
                        euclidean_clusters, euclidean_clusters_exact,
                        extract_plane, oriented_bboxes, segment_plane)
+    from ..utils import prng
     from ..utils.platform import platform_device, set_full_fp32_matmul
     from ..utils.types import PointCloud, round_up
 
@@ -139,9 +145,10 @@ def main(argv=None):
         print(f"MLS-smoothed (radius {args.mls} m)", flush=True)
 
     if args.drop_plane is not None:
-        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        key = prng.key(args.seed, device=dev)
         for i in range(args.planes):
-            model, _, count = segment_plane(pc, args.drop_plane, gen)
+            key, sub = prng.split(key)
+            model, _, count = segment_plane(pc, args.drop_plane, sub)
             c = int(count)
             if c == 0:
                 print(f"plane {i}: none found, stopping", flush=True)
@@ -221,4 +228,4 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    raise SystemExit(main())

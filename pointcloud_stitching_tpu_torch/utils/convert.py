@@ -2,7 +2,8 @@
 
 The stitcher has no weights: its state is the camera intrinsics, the
 per-camera extrinsics and the config; the TSDF scene model's is its volume,
-the temporal voxel map's its slots, an NDT map its cell table.
+the temporal voxel map's its slots, an NDT map its cell table, a random
+draw's its key.
 The JAX side hands them over as numpy arrays (``np.asarray`` of each field)
 and these functions build the port's counterparts, so both sides compute
 the same thing. The config crosses as JSON through
@@ -84,3 +85,13 @@ def ndt_map_from_numpy(arrays: dict, device):
     return NDTMap(**{k: torch.tensor(np.asarray(arrays[k], dt),
                                      device=device)
                      for k, dt in NDT_FIELDS.items()})
+
+
+def key_from_jax(key_data, device=None) -> torch.Tensor:
+    """A ``utils.prng`` key from a JAX key's data (``np.asarray(
+    jax.random.key_data(k))``, two uint32 words): the port's draws from it
+    are JAX's draws from ``k``."""
+    a = np.asarray(key_data)
+    if a.shape != (2,) or a.dtype != np.uint32:
+        raise ValueError(f"want uint32 [2] key data, got {a.dtype} {a.shape}")
+    return torch.tensor(a.astype(np.int64), device=device)

@@ -32,6 +32,7 @@ from pointcloud_stitching_tpu_torch.io import load_cal, save_ply
 from pointcloud_stitching_tpu_torch.models import registration as PR
 from pointcloud_stitching_tpu_torch.ops.se3 import so3_exp
 from pointcloud_stitching_tpu_torch.tools import register_cli
+from pointcloud_stitching_tpu_torch.utils import prng
 from pointcloud_stitching_tpu_torch.utils.convert import ndt_map_from_numpy
 from oracle import random_se3, transform_np
 from test_fpfh import _bumpy_surface
@@ -271,24 +272,52 @@ def test_fpfh_hypotheses_match_jax():
 
 
 def test_fpfh_starts_sample_valid_descriptors():
-    """The port's draws come from the caller's generator: the same seed
-    gives the same hypotheses, and every sampled source point has a valid
+    """The port's draws come from the caller's key: the same key gives the
+    same hypotheses, and every sampled source point has a valid
     descriptor."""
     xyz, _ = _bumpy_surface(seed=9, n=800)
     T_true = random_se3(seed=21, max_angle=2.5, max_trans=0.4)
     dst = transform_np(T_true, xyz).astype(np.float32)
     cs = P.voxel_downsample(PointCloud.from_points(xyz), 0.05, 1024)
     cd = P.voxel_downsample(PointCloud.from_points(dst), 0.05, 1024)
-    a = PR._fpfh_start_transforms(cs, cd, torch.Generator().manual_seed(1),
-                                  16, 0.05, 2)
-    b = PR._fpfh_start_transforms(cs, cd, torch.Generator().manual_seed(1),
-                                  16, 0.05, 2)
+    a = PR._fpfh_start_transforms(cs, cd, prng.key(1), 16, 0.05, 2)
+    b = PR._fpfh_start_transforms(cs, cd, prng.key(1), 16, 0.05, 2)
     assert torch.equal(a, b) and a.shape == (16, 4, 4)
     vs = PR._fpfh_features(cs, cd, 0.05, 2)[0]
-    g = torch.Generator().manual_seed(1)
-    si = torch.multinomial(torch.softmax(torch.where(vs, 0.0, -1e9), 0),
-                           48, replacement=True, generator=g)
+    si = prng.categorical(prng.split(prng.key(1))[0],
+                          torch.where(vs, 0.0, -1e9), shape=(16, 3))
     assert bool(vs[si].all())
+
+
+def test_fpfh_start_transforms_match_jax_on_the_same_key():
+    """``_fpfh_start_transforms`` on JAX's key: the port draws JAX's
+    triples (categorical) and matches (randint), so its hypotheses are
+    JAX's, held as test_fpfh_hypotheses_match_jax holds them (1e-5 where
+    the triple's cross-covariance is not near rank one, rigid
+    everywhere)."""
+    xyz, _ = _bumpy_surface(seed=9, n=800)
+    T_true = random_se3(seed=21, max_angle=2.5, max_trans=0.4)
+    dst = transform_np(T_true, xyz).astype(np.float32)
+    leaf, k_corr, n_starts = 0.05, 2, 32
+    jcs = J.voxel_downsample(JPointCloud.from_points(xyz), leaf, 1024)
+    jcd = J.voxel_downsample(JPointCloud.from_points(dst), leaf, 1024)
+    want = n(JR._fpfh_start_transforms(jcs, jcd, jax.random.key(5),
+                                       n_starts, leaf, k_corr))
+    pcs = PointCloud(xyz=t(jcs.xyz), mask=t(jcs.mask))
+    pcd = PointCloud(xyz=t(jcd.xyz), mask=t(jcd.mask))
+    got = n(PR._fpfh_start_transforms(pcs, pcd, prng.key(5), n_starts,
+                                      leaf, k_corr))
+    R = got[:, :3, :3].astype(np.float64)
+    np.testing.assert_allclose(R @ R.transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(3), R.shape),
+                               atol=1e-5)
+    close = np.abs(got - want).max(axis=(1, 2)) <= 1e-5
+    assert close.sum() >= n_starts - 4
+    # another key draws other triples: most hypotheses move
+    other = n(PR._fpfh_start_transforms(pcs, pcd, prng.key(6), n_starts,
+                                        leaf, k_corr))
+    assert (np.abs(other - want).max(axis=(1, 2)) <= 1e-5).sum() \
+        < n_starts // 2
 
 
 def test_register_global_fpfh_starts_alone_recover_pose():
@@ -300,7 +329,7 @@ def test_register_global_fpfh_starts_alone_recover_pose():
     dst = transform_np(T_true, xyz).astype(np.float32)
     res = PR.register_global(PointCloud.from_points(xyz),
                              PointCloud.from_points(dst),
-                             torch.Generator().manual_seed(3), num_starts=1,
+                             prng.key(3), num_starts=1,
                              fpfh_starts=32, fpfh_k_corr=2, coarse_leaf=0.05,
                              max_iterations=30)
     assert _max_point_err(res.T, T_true, xyz[:200]) < 0.01
@@ -317,6 +346,12 @@ def _cli_pair(tmp_path, mode):
                                            phase=(0.5, 0.5, 0.5)))
         args = ["--no-picks", "--gicp", "--gicp-normal-radius", "0.062",
                 "--max-corr-dist", "0.2", "--max-iter", "60"]
+    elif mode == "global":
+        src, _ = _bumpy_surface(seed=9, n=800)
+        T_true = random_se3(seed=21, max_angle=2.5, max_trans=0.4)
+        dst = transform_np(T_true, src)
+        # the default 64 starts, 39 of them drawn from key 0
+        args = ["--global", "--coarse-leaf", "0.05", "--max-iter", "30"]
     else:
         src, _ = _bumpy_surface(seed=9, n=800)
         T_true = random_se3(seed=21, max_angle=2.5, max_trans=0.4)
@@ -330,10 +365,11 @@ def _cli_pair(tmp_path, mode):
     return sp, dp, args, src, T_true
 
 
-@pytest.mark.parametrize("mode", ["gicp", "fpfh"])
+@pytest.mark.parametrize("mode", ["gicp", "fpfh", "global"])
 def test_register_cli_matches_jax_cli(tmp_path, monkeypatch, capsys, mode):
-    """``register_cli --gicp`` (phase-shifted corner scans) and
-    ``--global --starts 1 --fpfh-starts 32`` (2.5 rad apart): the port's
+    """``register_cli --gicp`` (phase-shifted corner scans),
+    ``--global --starts 1 --fpfh-starts 32`` and ``--global`` at its
+    default 64 starts (2.5 rad apart; both CLIs draw from key 0): the port's
     .cal moves the source points within 1e-4 m of where the JAX CLI's .cal
     moves them."""
     monkeypatch.setenv("PCS_PLATFORM", "cpu")

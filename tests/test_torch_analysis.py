@@ -6,12 +6,13 @@ counts and the radius / statistical outlier filters), ``ops/sac.py``
 three clusterers, cluster statistics, oriented boxes) and ``ops/hull.py``
 (support points, convex and concave hulls, crop). Inputs are made with
 numpy from a generator per test and cross as numpy arrays; the port gets
-CPU tensors. JAX runs on the CPU as the rest of the suite runs it; none of
+CPU tensors, and its plane RANSAC draws from the same key as JAX's
+(``utils.convert.key_from_jax``). JAX runs on the CPU as the rest of the suite runs it; none of
 these functions reaches a Pallas kernel.
 
-Tolerances: masks and labels bitwise; ``segment_plane`` on the JAX
-package's indices within 1e-5 (inlier masks equal away from 1e-6 m of the
-threshold); ``knn_mean_distance`` within 1e-6; ``cluster_stats`` and the
+Tolerances: masks and labels bitwise; ``segment_plane``'s hypotheses
+bitwise JAX's, its model within 1e-5 (inlier masks equal away from 1e-6 m
+of the threshold); ``knn_mean_distance`` within 1e-6; ``cluster_stats`` and the
 oriented boxes within 1e-5 (box axes up to sign); support indices and
 hull vertex sets exactly.
 """
@@ -37,6 +38,8 @@ from pointcloud_stitching_tpu_torch.ops import cluster as PC
 from pointcloud_stitching_tpu_torch.ops import filters as PF
 from pointcloud_stitching_tpu_torch.ops import hull as PH
 from pointcloud_stitching_tpu_torch.ops import sac as PS
+from pointcloud_stitching_tpu_torch.utils import prng
+from pointcloud_stitching_tpu_torch.utils.convert import key_from_jax
 from oracle import random_se3
 
 N = 2048
@@ -201,12 +204,13 @@ def test_segment_plane_on_jax_draws_matches_jax(refine_iters):
 
 
 def test_segment_plane_draws_from_the_generator():
-    """The same generator state gives the same plane; an empty or
-    two-point cloud gives the zero model and no inliers, as JAX's."""
+    """The same key gives the same plane; an empty or two-point cloud
+    gives the zero model and no inliers, as JAX's; a torch.Generator in
+    the key's place is refused with a pointer to prng.key."""
     xyz, mask, normal = _plane_scene(8)
     _, tp = _clouds(xyz, mask)
-    a = PS.segment_plane(tp, 0.01, torch.Generator().manual_seed(3))
-    b = PS.segment_plane(tp, 0.01, torch.Generator().manual_seed(3))
+    a = PS.segment_plane(tp, 0.01, prng.key(3))
+    b = PS.segment_plane(tp, 0.01, prng.key(3))
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert abs(abs(float(a[0][:3] @ t(normal))) - 1) < 1e-4
@@ -217,12 +221,56 @@ def test_segment_plane_draws_from_the_generator():
         jp, tp = _clouds(xyz, m)
         jm, ji, jc = JS.segment_plane(jp, 0.01, jax.random.key(0),
                                       num_hypotheses=64)
-        pm, pi, pc_ = PS.segment_plane(tp, 0.01,
-                                       torch.Generator().manual_seed(0),
+        pm, pi, pc_ = PS.segment_plane(tp, 0.01, prng.key(0),
                                        num_hypotheses=64)
         assert int(pc_) == int(jc) == 0
         assert not pi.any() and not n(ji).any()
         np.testing.assert_array_equal(n(pm), n(jm))
+    with pytest.raises(TypeError, match=r"prng\.key\(seed\)"):
+        PS.segment_plane(tp, 0.01, torch.Generator().manual_seed(0))
+
+
+def _two_planes(seed, npts=N):
+    """Two planes of near-equal support (a floor of 40% of the points and
+    a wall of 38%, 0.5 mm noise) plus clutter: with few hypotheses the
+    draws decide which plane, if any, wins."""
+    rng = np.random.default_rng(seed)
+    ka, kb = int(0.40 * npts), int(0.38 * npts)
+    floor = np.c_[rng.uniform(-1, 1, (ka, 2)), rng.normal(0, 5e-4, ka)]
+    wall = np.c_[rng.normal(1.2, 5e-4, kb), rng.uniform(-1, 1, kb),
+                 rng.uniform(0.1, 1.5, kb)]
+    clutter = rng.uniform(-1, 1.5, (npts - ka - kb, 3))
+    xyz = np.concatenate([floor, wall, clutter])[rng.permutation(npts)]
+    return xyz.astype(np.float32), rng.random(npts) > 0.05
+
+
+@pytest.mark.parametrize("scene,seed,m", [
+    ("plane", 7, 256), ("plane", 2 ** 32 + 11, 64), ("two planes", 3, 8),
+    ("two planes", 5, 8), ("two planes", 12, 32)])
+def test_segment_plane_matches_jax_on_the_same_key(scene, seed, m):
+    """The port's segment_plane on JAX's key: the hypotheses are JAX's
+    indices bit for bit, so the plane is JAX's (model within 1e-5, inliers
+    equal away from 1e-6 m of the threshold), on the two-plane scenes too,
+    where other draws pick another plane."""
+    xyz, mask = (_plane_scene(6)[:2] if scene == "plane"
+                 else _two_planes(seed))
+    jp, tp = _clouds(xyz, mask)
+    key, idx = _jax_draws(jp, m, seed)
+    pkey = key_from_jax(np.asarray(jax.random.key_data(key)))
+    p = tp.mask.to(torch.float32)
+    p = p / torch.clamp(p.sum(), min=1.0)
+    np.testing.assert_array_equal(
+        n(prng.choice(pkey, N, (m, 3), p=p)), idx)
+    jm, ji, jc = JS.segment_plane(jp, 0.01, key, num_hypotheses=m,
+                                  chunk=512)
+    pm, pi, pc_ = PS.segment_plane(tp, 0.01, pkey, num_hypotheses=m,
+                                   chunk=512)
+    np.testing.assert_allclose(n(pm), n(jm), rtol=0, atol=1e-5)
+    dist = np.abs(xyz.astype(np.float64) @ n(jm)[:3].astype(np.float64)
+                  + float(n(jm)[3]))
+    edge = np.abs(dist - 0.01) < 1e-6
+    np.testing.assert_array_equal(n(pi)[~edge], n(ji)[~edge])
+    assert abs(int(pc_) - int(jc)) <= int(edge.sum())
 
 
 def test_extract_and_project_plane_match_jax():

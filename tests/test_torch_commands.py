@@ -266,3 +266,56 @@ def test_camera_host_scripts_start_and_kill_the_port_server(tmp_path):
                        timeout=30)
         jax_lookalike.kill()
         jax_lookalike.wait(timeout=30)
+
+
+# the four commands whose main once returned a value (FrameMetrics, a face
+# or cluster count), which sys.exit turned into a failing exit status:
+# command -> (module, set-up code, argv as a Python expression)
+_SERVE = ("from pointcloud_stitching_tpu_torch.runtime.fake_server import "
+          "FakeCameraServer, synthetic_frames\n"
+          "srv = FakeCameraServer(synthetic_frames(3, 60, 106)).start()\n")
+EXIT_CASES = {
+    "pcs-torch-stitch": (
+        "runtime.stitch_cli", _SERVE,
+        "['--camera', f'127.0.0.1:{srv.port}', '--height', '60', "
+        "'--width', '106', '--frames', '2', '--print-every', '0']"),
+    "pcs-torch-camera-test": (
+        "runtime.camera_test", _SERVE,
+        "['--port', str(srv.port), '--frames', '2', '--deproject']"),
+    "pcs-torch-mesh": (
+        "tools.mesh_cli",
+        "import numpy as np\n"
+        "np.save('d.npy', np.full((48, 64), 1000, np.uint16))\n",
+        "['d.npy', 'mesh.ply']"),
+    "pcs-torch-segment": (
+        "tools.segment_cli",
+        "import numpy as np\n"
+        "from pointcloud_stitching_tpu_torch.io import save_ply\n"
+        "rng = np.random.default_rng(0)\n"
+        "floor = np.c_[rng.uniform(-1, 1, (600, 2)), np.zeros(600)]\n"
+        "blob = rng.normal(0, 0.05, (200, 3)) + 0.5\n"
+        "save_ply('scene.ply', np.concatenate([floor, blob]))\n",
+        "['scene.ply', 'out', '--drop-plane', '0.01', '--min-size', '20']"),
+}
+
+
+@time_limit(120)
+@pytest.mark.parametrize("command", sorted(EXIT_CASES))
+def test_the_command_exits_0_after_a_good_run(command, tmp_path,
+                                              no_jax_env):
+    """The console script runs ``sys.exit(main())``: after a good run the
+    port's main returns 0 (the JAX package's returns its metrics or a
+    count, which exits with status 1 or the count mod 256)."""
+    module, setup, argv = EXIT_CASES[command]
+    target = f"pointcloud_stitching_tpu_torch.{module}:main"
+    assert _scripts()[command] == target
+    code = (f"import sys\n{setup}"
+            f"from pointcloud_stitching_tpu_torch.{module} import main\n"
+            f"sys.exit(main({argv}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True,
+                          env=dict(no_jax_env, PYTHONPATH=os.pathsep.join(
+                              [no_jax_env["PYTHONPATH"], REPO])),
+                          timeout=CHILD_TIMEOUT)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert proc.stdout.strip(), "the command printed nothing"

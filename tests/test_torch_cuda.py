@@ -25,6 +25,8 @@ from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
 from pointcloud_stitching_tpu_torch.kernels.patch_gather import patch_gather
 from pointcloud_stitching_tpu_torch.models import tsdf as TM
 from pointcloud_stitching_tpu_torch.ops import icp_converge
+from pointcloud_stitching_tpu_torch.utils import prng
+from pointcloud_stitching_tpu_torch.kernels import prng as KP
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     k1_grid, segment_sum_from_flags, segment_sum_sorted)
 from oracle import random_se3, synth_depth_frame
@@ -958,9 +960,8 @@ def test_segment_plane_holds_full_fp32_under_tf32(cuda_device):
     and count equal those with it off, and the CPU's model within 1e-6."""
     from pointcloud_stitching_tpu_torch.ops import sac
     xyz, mask = _analysis_scene()
-    idx = torch.multinomial(mask.float(), 3 * 256, replacement=True,
-                            generator=torch.Generator().manual_seed(1)
-                            ).view(256, 3)
+    idx = prng.choice(prng.key(1), mask.shape[0], (256, 3),
+                      p=mask.float() / mask.sum())
     pc = P.PointCloud(xyz=xyz, mask=mask)
     pcg = P.PointCloud(xyz=xyz.to(cuda_device), mask=mask.to(cuda_device))
     want = sac._segment_plane_from_indices(pc, idx, 0.01)
@@ -1024,3 +1025,111 @@ def test_analysis_ops_on_the_card_match_cpu(cuda_device):
     assert torch.equal(
         HL._support_indices(pcg.xyz, pcg.mask, dirs.to(cuda_device)).cpu(),
         HL._support_indices(xyz, mask, dirs))
+
+
+def test_prng_kernels_match_plain(cuda_device):
+    """threefry2x32 and the XLA-order scan on the card, bit for bit their
+    plain versions, at 1 and 262,144 counters and a 262,144-slot mask;
+    and the draws made from them equal the CPU's."""
+    kb.reset_launches()
+    for seed in (0, 5, 2 ** 32 + 7):
+        k = prng.key(seed, device=cuda_device)
+        for n in (1, 17, 262144):
+            for pairs in (False, True):
+                got = KP.threefry2x32(k, n, pairs, impl="cuda")
+                want = KP.threefry2x32(k, n, pairs, impl="torch")
+                assert torch.equal(got, want)
+                assert torch.equal(got.cpu(), KP.threefry2x32(
+                    k.cpu(), n, pairs))
+    rng = np.random.default_rng(3)
+    for n in (1, 16, 17, 300, 262144):
+        m = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32))
+        p = (m / torch.clamp(m.sum(), min=1.0)).to(cuda_device)
+        got = KP.scan16(p, impl="cuda")
+        assert torch.equal(got, KP.scan16(p, impl="torch"))
+        assert torch.equal(got.cpu(), KP.scan16(p.cpu()))
+        k = prng.key(7, device=cuda_device)
+        assert torch.equal(prng.choice(k, n, (64, 3), p=p).cpu(),
+                           prng.choice(k.cpu(), n, (64, 3), p=p.cpu()))
+    assert kb.LAUNCHES["threefry2x32"] >= 18
+    assert kb.LAUNCHES["scan16"] >= 5
+
+
+def test_segment_plane_on_the_card_matches_cpu(cuda_device):
+    """The same key draws the same hypotheses on both devices, so the
+    plane is the CPU's."""
+    from pointcloud_stitching_tpu_torch.ops import sac
+    xyz, mask = _analysis_scene()
+    pc = P.PointCloud(xyz=xyz, mask=mask)
+    pcg = P.PointCloud(xyz=xyz.to(cuda_device), mask=mask.to(cuda_device))
+    want = sac.segment_plane(pc, 0.01, prng.key(0), num_hypotheses=256)
+    got = sac.segment_plane(pcg, 0.01, prng.key(0, device=cuda_device),
+                            num_hypotheses=256)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(),
+                               atol=1e-6)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert int(got[2]) == int(want[2]) > 1000
+
+
+def test_a_cpu_key_draws_on_the_card(cuda_device):
+    """A key made on the CPU with a cloud on the card: the hash and the
+    scan run on the card (the key moves there), and the plane is the one
+    a key on the card gives."""
+    from pointcloud_stitching_tpu_torch.ops import sac
+    xyz, mask = _analysis_scene()
+    pcg = P.PointCloud(xyz=xyz.to(cuda_device), mask=mask.to(cuda_device))
+    want = sac.segment_plane(pcg, 0.01, prng.key(0, device=cuda_device),
+                             num_hypotheses=256)
+    kb.reset_launches()
+    got = sac.segment_plane(pcg, 0.01, prng.key(0), num_hypotheses=256)
+    assert kb.LAUNCHES["threefry2x32"] == 1 and kb.LAUNCHES["scan16"] == 1
+    assert got[0].device == pcg.xyz.device
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    p = mask.float() / mask.sum()
+    idx = prng.choice(prng.key(3), p.shape[0], (8, 3), p=p.to(cuda_device))
+    assert idx.device == pcg.xyz.device
+    assert torch.equal(idx.cpu(), prng.choice(prng.key(3), p.shape[0],
+                                              (8, 3), p=p))
+
+
+def test_float_draws_on_the_card_match_cpu(cuda_device):
+    """uniform on a range, normal and categorical: the card's samples are
+    the CPU's bit for bit (the range's multiply-add is made in float64,
+    where the product is exact). CUDA's erfinv and log may differ from the
+    CPU's by a few ulps, so normal is held to 1e-5 relative, the bound
+    against JAX, and gumbel to 1e-6; the categorical's indices equal."""
+    for seed in (0, 5, 2 ** 32 + 7):
+        kc = prng.key(seed)
+        kg = kc.to(cuda_device)
+        for lo, hi in ((-2.5, 7.0), (0.1, 0.7), (-3.3e-3, 1e4)):
+            assert torch.equal(
+                prng.uniform(kg, (262144,), lo, hi).cpu().view(torch.int32),
+                prng.uniform(kc, (262144,), lo, hi).view(torch.int32))
+        torch.testing.assert_close(prng.normal(kg, (39, 4)).cpu(),
+                                   prng.normal(kc, (39, 4)),
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(prng.gumbel(kg, (4096,)).cpu(),
+                                   prng.gumbel(kc, (4096,)),
+                                   rtol=1e-6, atol=1e-6)
+        logits = torch.where(torch.arange(1024) % 5 != 0, 0.0, -1e9)
+        assert torch.equal(
+            prng.categorical(kg, logits.to(cuda_device), shape=(64, 3)).cpu(),
+            prng.categorical(kc, logits, shape=(64, 3)))
+
+
+def test_register_global_torch_route_launches_no_draw_kernel(cuda_device):
+    """kernel_impl='torch' keeps the draws on their plain versions too."""
+    from pointcloud_stitching_tpu_torch.models import registration as PR
+    rng = np.random.default_rng(0)
+    xyz = torch.from_numpy(rng.random((2000, 3)).astype(np.float32))
+    pc = P.PointCloud(xyz=xyz.to(cuda_device),
+                      mask=torch.ones(2000, dtype=torch.bool,
+                                      device=cuda_device))
+    kb.reset_launches()
+    PR.register_global(pc, pc, prng.key(0), num_starts=26, coarse_leaf=0.1,
+                       coarse_capacity=256, refine=False, fpfh_starts=4,
+                       kernel_impl="torch")
+    assert kb.LAUNCHES["threefry2x32"] == 0 and kb.LAUNCHES["scan16"] == 0
+    PR.register_global(pc, pc, prng.key(0), num_starts=26, coarse_leaf=0.1,
+                       coarse_capacity=256, refine=False, fpfh_starts=4)
+    assert kb.LAUNCHES["threefry2x32"] == 7

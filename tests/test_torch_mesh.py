@@ -177,7 +177,7 @@ def _run_both(argv_t, argv_j, capsys):
     their last output lines."""
     from pointcloud_stitching_tpu.tools import mesh_cli as jax_cli
     capsys.readouterr()
-    n_t = mesh_cli.main(argv_t)
+    n_t = mesh_cli._run(argv_t)
     line_t = capsys.readouterr().out.strip().splitlines()[-1]
     n_j = jax_cli.main(argv_j)
     line_j = capsys.readouterr().out.strip().splitlines()[-1]

@@ -32,6 +32,7 @@ import pointcloud_stitching_tpu_torch.ops as T
 from pointcloud_stitching_tpu_torch import native
 from pointcloud_stitching_tpu_torch.models import registration as PR
 from pointcloud_stitching_tpu_torch.models import voxel_map as TV
+from pointcloud_stitching_tpu_torch.utils import prng
 from pointcloud_stitching_tpu_torch.utils.types import PointCloud
 from oracle import random_se3, transform_np
 from test_torch_ops import _icp_pair, _voxel_inputs
@@ -69,14 +70,13 @@ def assert_bitwise(a, b) -> None:
             assert x == y
 
 
-def keywords(jax_fn, args, rename=None) -> dict:
+def keywords(jax_fn, args) -> dict:
     """``args`` as keywords, named as the JAX function names its
-    positional parameters (``rename`` maps a JAX name to the port's)."""
+    positional parameters."""
     names = [p.name for p in inspect.signature(jax_fn).parameters.values()
              if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
     assert len(args) <= len(names)
-    rename = rename or {}
-    return {rename.get(n, n): a for n, a in zip(names, args)}
+    return dict(zip(names, args))
 
 
 @pytest.fixture
@@ -188,8 +188,8 @@ def case_register_pair():
 
 
 def case_register_global():
-    """At 25 starts both sides try identity and the 24 PCA alignments (no
-    random draw), as test_register_global_matches_jax_at_25_starts."""
+    """Both sides draw from key 0: the same starts (identity, the 24 PCA
+    alignments and JAX's one random rotation)."""
     xyz, mask = _scene_cloud(seed=3)
     T_true = random_se3(seed=8, max_angle=1.0, max_trans=0.2)
     dxyz = transform_np(T_true, xyz).astype(np.float32)
@@ -198,11 +198,10 @@ def case_register_global():
     tail = (25, 0.08, 512, 15, None, 0.1, 512, 1024, True, 0, 8)
     want = JR.register_global(js, jd, jax.random.key(0), *tail,
                               max_iterations=30)
-    args = (ps, pd, torch.Generator().manual_seed(0), *tail)
+    args = (ps, pd, prng.key(0), *tail)
     got = PR.register_global(*args, max_iterations=30)
-    kw = keywords(JR.register_global, args, rename={"key": "generator"})
-    kw["generator"] = torch.Generator().manual_seed(0)
-    assert_bitwise(got, PR.register_global(**kw, max_iterations=30))
+    assert_bitwise(got, PR.register_global(
+        **keywords(JR.register_global, args), max_iterations=30))
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-4)
 
 
@@ -333,7 +332,6 @@ def _roadmap_calls():
     pd = PointCloud(xyz=t(dst), mask=t(dmask))
     depths, ji, ext = _scene()
     pi, pcfg = _port_state(ji, _jax_cfg())
-    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
     return {
         "nearest_neighbors": (T.nearest_neighbors, J.nearest_neighbors,
                               lambda: (ps.xyz, pd.xyz, None, 1024, 4096)),
@@ -344,8 +342,8 @@ def _roadmap_calls():
             ps, pd, None, None, True, 50, 1e-8, 0.25, 1024, 4096, 0.0,
             False)),
         "register_global": (PR.register_global, JR.register_global,
-                            lambda: (ps, pd, gen(), 4, 0.05, 1024, 15, None,
-                                     0.1, 512, 1024, True, 0, 8)),
+                            lambda: (ps, pd, prng.key(0), 4, 0.05, 1024, 15,
+                                     None, 0.1, 512, 1024, True, 0, 8)),
         "StitchingPipeline": (
             lambda *a, **k: P.StitchingPipeline(*a, **k)(
                 torch.from_numpy(depths)),
@@ -361,8 +359,7 @@ def test_roadmap_calls_equal_their_keyword_calls(call, on_cpu):
     (``native.build(True)``, the seventh, is ``case_build`` above)."""
     port_fn, jax_fn, make_args = _roadmap_calls()[call]
     got = port_fn(*make_args())
-    kw = keywords(jax_fn, make_args(), rename={"key": "generator"})
-    assert_bitwise(got, port_fn(**kw))
+    assert_bitwise(got, port_fn(**keywords(jax_fn, make_args())))
 
 
 def test_the_default_device_is_the_card(monkeypatch):
@@ -405,6 +402,5 @@ def test_chip_smoke_names_the_jax_order():
                "build": jax_native_build}
     assert set(smoke.JAX_ORDER) == set(jax_fns)
     for name, fn in jax_fns.items():
-        names = tuple(keywords(fn, [None] * len(smoke.JAX_ORDER[name]),
-                               rename={"key": "generator"}))
+        names = tuple(keywords(fn, [None] * len(smoke.JAX_ORDER[name])))
         assert smoke.JAX_ORDER[name] == names, name

@@ -34,7 +34,7 @@ from pointcloud_stitching_tpu_torch.kernels import build as kb
 from pointcloud_stitching_tpu_torch.kernels import nn_pallas as PNN
 from pointcloud_stitching_tpu_torch.models import registration as PR
 from pointcloud_stitching_tpu_torch.ops import icp, icp_converge
-from pointcloud_stitching_tpu_torch.utils import platform
+from pointcloud_stitching_tpu_torch.utils import platform, prng
 from oracle import deproject_np, icp_np, random_se3, synth_depth_frame, \
     transform_np
 
@@ -320,7 +320,8 @@ def _max_point_err(T_got, T_true, xyz):
 
 def test_register_global_matches_jax_at_25_starts():
     """At 25 starts the hypotheses are identity + the 24 PCA alignments on
-    both sides (no random draw), so the two winners agree."""
+    both sides (the one random rotation drawn from the key is not used),
+    so the two winners agree."""
     xyz, mask = _scene_cloud(seed=3)
     T_true = random_se3(seed=8, max_angle=1.0, max_trans=0.2)
     dxyz = transform_np(T_true, xyz).astype(np.float32)
@@ -332,10 +333,56 @@ def test_register_global_matches_jax_at_25_starts():
         jax.random.key(0), **kw)
     got = PR.register_global(PointCloud(xyz=t(xyz), mask=t(mask)),
                              PointCloud(xyz=t(dxyz), mask=t(mask)),
-                             torch.Generator().manual_seed(0), prune=True,
-                             **kw)
+                             prng.key(0), prune=True, **kw)
     np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-4)
     assert _max_point_err(got.T, T_true, xyz[mask][:200]) < 0.005
+
+
+@pytest.mark.parametrize("fpfh_starts", [0, 16])
+def test_register_global_matches_jax_on_the_same_key(fpfh_starts):
+    """The JAX package's default 64 starts (39 of them random), alone and
+    with 16 FPFH starts: the port draws JAX's rotations (normal, within
+    ~6e-6 relative) and JAX's FPFH triples and matches (categorical,
+    randint) from the same key, so the two winners agree. On this scene
+    the coarse winner depends on the draws: another key moves
+    ``initial_T`` by 2-8e-3."""
+    xyz, mask = _scene_cloud(seed=1)
+    T_true = random_se3(seed=0, max_angle=3.1, max_trans=0.2)
+    dxyz = transform_np(T_true, xyz).astype(np.float32)
+    kw = dict(num_starts=64, coarse_leaf=0.08, coarse_capacity=512,
+              fpfh_starts=fpfh_starts, max_iterations=30)
+    want = JR.register_global(
+        JPointCloud(xyz=jnp.asarray(xyz), mask=jnp.asarray(mask)),
+        JPointCloud(xyz=jnp.asarray(dxyz), mask=jnp.asarray(mask)),
+        jax.random.key(4), **kw)
+    got = PR.register_global(PointCloud(xyz=t(xyz), mask=t(mask)),
+                             PointCloud(xyz=t(dxyz), mask=t(mask)),
+                             prng.key(4), **kw)
+    np.testing.assert_allclose(got.initial_T.numpy(),
+                               np.asarray(want.initial_T), atol=1e-4)
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(want.T), atol=1e-4)
+    assert _max_point_err(got.T, T_true, xyz[mask][:200]) < 0.005
+
+
+def test_register_global_routes_its_draws_with_kernel_impl(monkeypatch):
+    """``kernel_impl`` reaches the draws' kernels as it reaches K1/K3/K4:
+    every threefry2x32 of the random and FPFH starts gets it."""
+    seen = []
+    real = prng.threefry2x32
+
+    def recording(key, n, pairs=False, impl="auto"):
+        seen.append(impl)
+        return real(key, n, pairs, impl=impl)
+
+    monkeypatch.setattr(prng, "threefry2x32", recording)
+    xyz, mask = _scene_cloud(seed=2)
+    pc = PointCloud(xyz=t(xyz), mask=t(mask))
+    PR.register_global(pc, pc, prng.key(0), num_starts=26, coarse_leaf=0.08,
+                       coarse_capacity=256, refine=False, fpfh_starts=4,
+                       kernel_impl="torch")
+    # split, normal; the FPFH starts' split, categorical, randint (split
+    # and two bits)
+    assert seen == ["torch"] * 7
 
 
 def test_register_global_recovers_large_rotation():
@@ -345,13 +392,13 @@ def test_register_global_recovers_large_rotation():
     dst = PointCloud(xyz=t(transform_np(T_true, xyz).astype(np.float32)),
                      mask=t(mask))
     res = PR.register_global(PointCloud(xyz=t(xyz), mask=t(mask)), dst,
-                             torch.Generator().manual_seed(0), num_starts=48,
+                             prng.key(0), num_starts=48,
                              coarse_leaf=0.08, coarse_capacity=512,
                              max_iterations=30)
     assert _max_point_err(res.T, T_true, xyz[:200]) < 0.005
     # the FPFH-seeded starts run beside the identity start (they used to
     # raise): a cloud against itself stays where it is
-    same = PR.register_global(dst, dst, torch.Generator().manual_seed(1),
+    same = PR.register_global(dst, dst, prng.key(1),
                               num_starts=1, fpfh_starts=8, coarse_leaf=0.08,
                               coarse_capacity=512, max_iterations=30)
     assert _max_point_err(same.T, np.eye(4), xyz[:200]) < 1e-5
@@ -407,7 +454,7 @@ def test_entry_points_take_and_ignore_the_tile_arguments(fn):
         "register_pair": lambda **kw: PR.register_pair(
             ps, pd, max_iterations=10, max_corr_dist=0.2, **kw),
         "register_global": lambda **kw: PR.register_global(
-            ps, pd, torch.Generator().manual_seed(0), num_starts=25,
+            ps, pd, prng.key(0), num_starts=25,
             coarse_capacity=256, **kw),
     }
     plain = calls[fn]()

@@ -29,6 +29,7 @@ from pointcloud_stitching_tpu_torch import native
 from pointcloud_stitching_tpu_torch.io import lzf as py_lzf
 from pointcloud_stitching_tpu_torch.io import load_ply
 from pointcloud_stitching_tpu_torch.models.tsdf import load_volume
+from pointcloud_stitching_tpu_torch.utils import prng
 from pointcloud_stitching_tpu_torch.native import lzf as native_lzf
 from pointcloud_stitching_tpu_torch.runtime import (
     Codec, FakeCameraServer, Kind, MulticameraClient, camera_test, stitch_cli,
@@ -544,7 +545,7 @@ def test_stitch_cli_saves_clouds_and_tsdf(rig, tmp_path, monkeypatch, capsys):
              "--tsdf-leaf", "0.05", "--tsdf-shape", "48,48,48",
              "--tsdf-every", "2", "--tsdf-out", str(npz),
              "--print-every", "2", "--timing"]
-    m = stitch_cli.main(argv)
+    m = stitch_cli._run(argv)
     assert m.total_frames == 5
     plys = sorted(os.listdir(out_dir))
     assert plys == ["cloud_000000.ply", "cloud_000002.ply",
@@ -602,7 +603,7 @@ def test_stitch_cli_refuses_unported_flags(rig, tmp_path, monkeypatch,
     the image sequence (no display here), --view-every renders every K-th
     frame and acts on the window's p (snapshot) and q (close) keys,
     --drop-plane saves clouds equal to a direct pipeline call followed by
-    segment_plane/extract_plane from a generator seeded 0, --publish-port
+    segment_plane/extract_plane from key 0, --publish-port
     feeds a StreamViewer subscriber the saved cloud in int16 mm, and
     --trace-dir writes a Chrome trace."""
     from pointcloud_stitching_tpu_torch.ops import extract_plane, segment_plane
@@ -642,7 +643,7 @@ def test_stitch_cli_refuses_unported_flags(rig, tmp_path, monkeypatch,
         port = _free_port()
         argv = ["--publish-port", str(port), "--fps", "20"]
         sub = _subscribe(port, 3, got)
-    m = stitch_cli.main(cli + argv)
+    m = stitch_cli._run(cli + argv)
     assert m.total_frames == nframes
     saved = [load_ply(str(tmp_path / "clouds" / f"cloud_{i:06d}.ply"))[0]
              for i in range(nframes)]
@@ -664,8 +665,7 @@ def test_stitch_cli_refuses_unported_flags(rig, tmp_path, monkeypatch,
         pipe = StitchingPipeline(cfg, i0.stack([i0]), np.tile(
             np.eye(4, dtype=np.float32), (2, 1, 1)), device="cpu")
         out = pipe(torch.from_numpy(np.stack([f[0] for f in frames])))
-        model, _, count = segment_plane(out.cloud, 0.02,
-                                        torch.Generator().manual_seed(0))
+        model, _, count = segment_plane(out.cloud, 0.02, prng.key(0))
         want = extract_plane(out.cloud, model, 0.02)
         assert int(count) > 100
         np.testing.assert_array_equal(saved[0], want.xyz[want.mask].numpy())
@@ -733,7 +733,6 @@ def test_stitch_cli_voxel_map_equals_direct_accumulation(rig, tmp_path,
 def test_camera_test_deprojects_on_the_cpu(rig, monkeypatch, capsys):
     monkeypatch.setenv("PCS_PLATFORM", "cpu")
     srv = rig(synthetic_frames(3, 480, 848, seed=4), codec=Codec.SNAPPY)
-    m = camera_test.main(["--port", str(srv.port), "--frames", "4",
-                          "--deproject"])
-    assert m.total_frames == 4
+    assert camera_test.main(["--port", str(srv.port), "--frames", "4",
+                             "--deproject"]) == 0
     assert '"frames": 4' in capsys.readouterr().out

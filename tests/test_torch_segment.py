@@ -4,9 +4,9 @@ package's.
 ``segment_cli`` runs from both packages on the same saved ``.ply``
 (in-process, ``PCS_PLATFORM=cpu`` for the port): with ``--drop-plane``,
 ``--exact``, ``--smooth-angle`` and ``--changed-vs`` the cluster files
-are byte for byte the same (``--drop-plane`` draws from a
-``torch.Generator`` where the JAX CLI splits a key, and the refits land on
-the same planes here). ``stitch_cli --drop-plane`` runs on the constant
+are byte for byte the same (``--drop-plane`` splits the key of
+``--seed`` before each plane as the JAX CLI does, so both draw the same
+hypotheses and remove the same planes). ``stitch_cli --drop-plane`` runs on the constant
 depth wall of ``tests/test_tools.py::test_stitch_cli_drop_plane``. Both
 CLIs' parsers hold every option string of the JAX CLIs'. The publisher
 sends the JAX publisher's bytes, the viewer renders its images, and the
@@ -59,22 +59,25 @@ def scene_files(tmp_path_factory):
 
 @pytest.mark.parametrize("flags", [
     ["--drop-plane", "0.01", "--planes", "2", "--obb", "--hull"],
+    ["--drop-plane", "0.01", "--planes", "2", "--seed", str(2 ** 32 + 9)],
     ["--exact", "--tolerance", "0.04"],
     ["--smooth-angle", "20", "--max-curvature", "0.05"],
     ["--changed-vs", "before.ply", "--change-leaf", "0.05", "--hull",
      "--hull-alpha", "0.2"]],
-    ids=["drop-plane", "exact", "smooth-angle", "changed-vs"])
+    ids=["drop-plane", "drop-plane-seed", "exact", "smooth-angle",
+         "changed-vs"])
 def test_segment_cli_matches_jax(scene_files, monkeypatch, flags):
     monkeypatch.setenv("PCS_PLATFORM", "cpu")
     flags = [str(scene_files / f) if f.endswith(".ply") else f
              for f in flags]
     outs = {}
-    for tag, cli in (("jax", jax_segment_cli), ("port", segment_cli)):
-        out = scene_files / f"{tag}-{flags[0]}"
+    for tag, run in (("jax", jax_segment_cli.main),
+                     ("port", segment_cli._run)):
+        out = scene_files / f"{tag}-{flags[0]}-{len(flags)}"
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            num = cli.main([str(scene_files / "scene.ply"), str(out),
-                            "--min-size", "20", "--seed", "3"] + flags)
+            num = run([str(scene_files / "scene.ply"), str(out),
+                       "--min-size", "20", "--seed", "3"] + flags)
         outs[tag] = (num, out, buf.getvalue())
     (nj, dj, tj), (np_, dp, tp) = outs["jax"], outs["port"]
     # the changed-vs baseline differs only by the moved object
@@ -84,13 +87,13 @@ def test_segment_cli_matches_jax(scene_files, monkeypatch, flags):
     assert files == sorted(os.listdir(dp)) and len(files) >= nj
     for f in files:
         assert filecmp.cmp(dj / f, dp / f, shallow=False), f
-    # the printed tables agree but for the output paths, the sign a
-    # plane's normal happens to take and an OBB axis' sign (its yaw mod 180)
+    # the printed tables agree but for the output paths and an OBB axis'
+    # sign (its yaw mod 180); the planes' lines too (the same draws)
     def table(text):
         text = re.sub(r"\S*(jax|port)-\S*", "", text)
         text = re.sub(r"yaw ([-+][\d.]+) deg",
                       lambda m: f"yaw {float(m.group(1)) % 180:.1f}", text)
-        return [ln for ln in text.splitlines() if "plane" not in ln]
+        return text.splitlines()
 
     assert table(tj) == table(tp)
     planes = [re.findall(r"(\d+) inliers", t) for t in (tj, tp)]

@@ -45,8 +45,6 @@ ALLOWED = {
     ("kernels.patch_gather", "bricks_per_step"): (None, TPU),
     ("kernels.patch_gather", "mode"): (None, "the TPU's DMA or one-hot gather; the CUDA kernel has one"),
     ("kernels.patch_gather", "interpret"): (None, INTERP),
-    ("models.registration::register_global", "key"): ("generator", "a torch.Generator in place of a JAX PRNG key"),
-    ("ops.sac::segment_plane", "key"): ("generator", "a torch.Generator in place of a JAX PRNG key"),
     ("utils.config::StitchConfig", "kernel_interpret"): (None, INTERP + "; tests/test_torch_ops.py pins it as dropped"),
 }
 # JAX names with no counterpart in the port

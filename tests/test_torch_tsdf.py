@@ -551,7 +551,7 @@ def test_mesh_cli_tsdf_branch_matches_jax(fused, tmp_path, capsys,
     # no triangle, and an .npz without a "tsdf" key is read as a voxel map
     monkeypatch.setenv("PCS_PLATFORM", "cpu")
     np.save(tmp_path / "d.npy", np.zeros((48, 64), np.uint16))
-    assert mesh_cli.main([str(tmp_path / "d.npy"), out_t, "--frame", "0"]) \
+    assert mesh_cli._run([str(tmp_path / "d.npy"), out_t, "--frame", "0"]) \
         == 0
     np.savez(tmp_path / "map.npz", keys=np.zeros(3))
     with pytest.raises(KeyError, match="version"):
