@@ -16,8 +16,8 @@ the stitch CLI's publisher, viewer and trace) and the sharded port
 (``parallel/``) in worlds of 1 and 4 ranks and the port's own commands
 (the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
 package's positional order) and the random draws (``utils/prng.py``, JAX's
-threefry2x32 key stream), and checks the seven hand-written CUDA kernels
-on those paths:
+threefry2x32 key stream) and the benchmark (``bench_torch.py``), and
+checks the seven hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -146,7 +146,13 @@ on those paths:
      drawing on the card, both kernels timed in turns with their plain
      versions (their launches: phase 12 (b)'s ``--drop-plane`` run, one
      each a frame), and ms and device operations per draw of ``choice`` over
-     262,144 slots, ``normal(39, 4)`` and ``categorical``.
+     262,144 slots, ``normal(39, 4)`` and ``categorical``;
+ 16. the port's benchmark: ``python3 bench_torch.py`` as a process (bench.py's
+     rows on the card, the roofline of scripts/roofline_torch.py among
+     them): exit 0, a last line of at most 1800 characters with bench.py's
+     keys, a positive value, every number finite and the pruned integrate
+     equal to the dense one bit for bit; the line and the rows' launches
+     printed.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -177,6 +183,13 @@ import warnings
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+if REPO not in sys.path:
+    # appended: a tree that scripts/profile_tree.py put first keeps its
+    # package ahead of this checkout's
+    sys.path.append(REPO)
+from bench_card import (FX, FY, F32_INSTR_PER_S,  # noqa: E402
+                        TSDF_SCENE, _flagship, bound, cuda_ms,
+                        flagship_fields, render_depth)
 NCAM, H, W = 8, 480, 848
 FRAMES = 10
 RTOL_F32 = 1e-6     # f32 centroids, kernel vs plain (see phase 3)
@@ -186,10 +199,6 @@ ATOL_ORACLE = 1e-4  # meters, centroids against the numpy oracle
 REG_CAP = 131072    # registration cloud slots (docs/KERNELS.md's 131k case)
 ATOL_REG = 1e-6     # registration T, 'auto' vs 'torch'
 MAX_REG_ERR = 0.005  # meters, registered points against the true pose
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (NVIDIA's data sheet)
-# H100 SXM float32 instructions per second outside the tensor cores:
-# 132 SMs x 128 lanes x 1.98 GHz boost (67 TFLOP/s counts an FMA as two)
-F32_INSTR_PER_S = 132 * 128 * 1.98e9
 
 
 def say(msg: str) -> None:
@@ -197,47 +206,15 @@ def say(msg: str) -> None:
 
 
 def flagship_scene():
-    """The flagship scene of __graft_entry__._flagship, made with numpy."""
-    rng = np.random.default_rng(0)
-    ext = np.tile(np.eye(4, dtype=np.float32), (NCAM, 1, 1))
-    ext[:, :3, 3] = rng.uniform(-0.3, 0.3, (NCAM, 3)).astype(np.float32)
-    depths = rng.integers(200, 4000, size=(NCAM, H, W), dtype=np.uint16)
-    depths[rng.random((NCAM, H, W)) < 0.07] = 0
+    """The flagship scene of __graft_entry__._flagship: bench_card's."""
+    _, _, ext, depths = _flagship(NCAM, H, W)
     return ext, depths
 
 
 def flagship_cfg(StitchConfig, **kw):
-    """bench.py's and __graft_entry__.py's flagship config (+ overrides)."""
-    base = dict(num_cameras=NCAM, height=H, width=W,
-                cam_voxel_leaf=0.01, cam_capacity=131072,
-                out_voxel_leaf=0.01, out_capacity=262144,
-                icp_enabled=True, icp_stride=6, icp_voxel_leaf=0.07,
-                icp_capacity=2048, icp_iterations=5, icp_max_corr_dist=0.1,
-                icp_query_tile=1024, icp_ref_tile=4096)
-    return StitchConfig(**{**base, **kw})
-
-
-PREFILL_CYCLES = 20_000_000  # ~10 ms of a spinning kernel at 1.98 GHz
-
-
-def cuda_ms(fn, reps: int, prefill: bool = True) -> float:
-    """Mean device ms per call of ``fn`` over ``reps`` calls, by CUDA events.
-
-    With ``prefill`` a spinning kernel holds the card while the host
-    enqueues the calls, so the events time the device work back to back
-    and not the wrapper's Python; without it the time per call is the
-    larger of the two (what a host-bound caller sees)."""
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if prefill:
-        torch.cuda._sleep(PREFILL_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    """bench.py's and __graft_entry__.py's flagship config (+ overrides),
+    as ``StitchConfig`` (another tree's class in scripts/profile_tree.py)."""
+    return StitchConfig(**{**flagship_fields(NCAM, H, W), **kw})
 
 
 def time_in_turns(kernel_fn, plain_fn, reps: int = 20):
@@ -260,14 +237,6 @@ def time_in_turns(kernel_fn, plain_fn, reps: int = 20):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def bound(nbytes: float, ops: float, rate: float = F32_INSTR_PER_S):
-    """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move ``nbytes`` and issue ``ops`` instructions at ``rate`` a second
-    (float32 by default)."""
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / rate
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def nbytes(*ts) -> int:
@@ -375,14 +344,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/15 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/16 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/15 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/16 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -436,7 +405,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/15 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/16 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -703,7 +672,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/15 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/16 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -753,7 +722,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/15 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/16 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -779,7 +748,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/15 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/16 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -813,7 +782,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/15 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/16 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -829,6 +798,7 @@ def main() -> int:
     parallel_phase(dev, card, t_auto)
     commands_phase(dev, kb, card)
     prng_phase(dev, kb, report, kernels, card, drop_launches, flag)
+    bench_phase(card)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -939,7 +909,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/15 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/16 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1153,45 +1123,10 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
 # --- phase 8: the TSDF scene model ------------------------------------------
 # bench.py's TSDF design point: the scene of its _tsdf_bench (three spheres
 # and two planes, the surface at n . p = off), rendered here with numpy
-TSDF_SCENE = dict(
-    spheres=[((-0.4, 0.1, 1.4), 0.35), ((0.5, -0.2, 1.8), 0.3),
-             ((0.0, 0.45, 1.1), 0.2)],
-    planes=[((0.0, 0.0, -1.0), -2.4), ((0.0, -1.0, 0.0), -0.8)])
 TSDF_NCAM, TSDF_GRID, TSDF_LEAF = 4, (256, 256, 256), 0.01
 TSDF_ORIGIN = (-1.28, -0.6, 0.2)
-TSDF_FX, TSDF_FY = 421.5, 421.1
 KEYFRAMES = 5
 CELL_CAPACITY = 1 << 19
-
-
-def render_depth(fx, fy, ppx, ppy, w, h, T, spheres=(), planes=(),
-                 z_clip=(0.05, 50.0)) -> np.ndarray:
-    """Analytic z-depth [h, w] float32 of the nearest surface along each
-    pixel ray of a pinhole camera at camera-to-world pose T (0 = no hit):
-    the renderer of tests/test_tsdf.py, in float64."""
-    T = np.asarray(T, np.float64)
-    u, v = np.meshgrid(np.arange(w, dtype=np.float64),
-                       np.arange(h, dtype=np.float64))
-    rays = np.stack([(u - ppx) / fx, (v - ppy) / fy, np.ones_like(u)], -1)
-    d = rays @ T[:3, :3].T                  # world directions, z_cam = 1
-    o = T[:3, 3]
-    best = np.full(d.shape[:2], np.inf)
-    for c, r in spheres:
-        c = np.asarray(c, np.float64)
-        a = np.sum(d * d, -1)
-        b = 2.0 * np.sum(d * (o - c), -1)
-        disc = b * b - 4 * a * (np.sum((o - c) ** 2) - r * r)
-        z = np.where(disc >= 0,
-                     (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), np.inf)
-        best = np.minimum(best, np.where(z > z_clip[0], z, np.inf))
-    for n, off in planes:
-        n = np.asarray(n, np.float64)
-        den = d @ n
-        with np.errstate(divide="ignore"):
-            z = np.where(np.abs(den) > 1e-12, (off - o @ n) / den, np.inf)
-        best = np.minimum(best, np.where(z > z_clip[0], z, np.inf))
-    return np.where(np.isfinite(best) & (best < z_clip[1]), best,
-                    0.0).astype(np.float32)
 
 
 def surface_distance(p: np.ndarray) -> np.ndarray:
@@ -1220,7 +1155,7 @@ def tsdf_rig(k: int):
                      [-np.sin(ang), 0, np.cos(ang)]]
         T[:3, 3] = [0.25 * (i - 1.5), 0.0, -0.05 * i]
         T = (rig @ T).astype(np.float32)
-        d = render_depth(TSDF_FX, TSDF_FY, W / 2.0, H / 2.0, W, H, T,
+        d = render_depth(FX, FY, W / 2.0, H / 2.0, W, H, T,
                          **TSDF_SCENE)
         d[140 + 30 * i:220 + 30 * i, 280:420] = 0.0   # dead rectangle
         exts.append(T)
@@ -1278,7 +1213,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     from pointcloud_stitching_tpu_torch.ops.se3 import se3_inverse
     from pointcloud_stitching_tpu_torch.ops.surface import weld_mesh
 
-    i1 = Intrinsics.create(fx=TSDF_FX, fy=TSDF_FY, ppx=W / 2.0, ppy=H / 2.0,
+    i1 = Intrinsics.create(fx=FX, fy=FY, ppx=W / 2.0, ppy=H / 2.0,
                            width=W, height=H, device=dev)
     intr = i1.stack([i1] * (TSDF_NCAM - 1))
     frames = [tsdf_rig(k) for k in range(KEYFRAMES)]
@@ -1334,7 +1269,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/15 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/16 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1456,7 +1391,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     # (d) raycast from camera 0 at stride 2, full and with the prior depth
     T0 = ext[0]
     i0 = TM._cam_slice(intr, 0)
-    truth = render_depth(TSDF_FX, TSDF_FY, W / 2.0, H / 2.0, W, H,
+    truth = render_depth(FX, FY, W / 2.0, H / 2.0, W, H,
                          ext_np[0], **TSDF_SCENE)[::2, ::2]
     rc = {}
     for tag, prior in (("full", None), ("prior", depth[0])):
@@ -1634,7 +1569,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/15 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/16 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1916,7 +1851,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/15 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/16 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -2186,7 +2121,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/15 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/16 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2584,7 +2519,7 @@ def analysis_phase(dev, kb, card):
         if tag == "113k":
             line = disc_check(pc, PLANE_THR)
         planes[tag] = model
-        say(f"[12/15 analysis] {card}: (a) segment_plane {tag} "
+        say(f"[12/16 analysis] {card}: (a) segment_plane {tag} "
             f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
             f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
             f"all within the threshold{line}; {ms:.3f} ms per call "
@@ -3169,7 +3104,7 @@ def _shard_tsdf(dev, zmesh, world: int, rank: int) -> dict:
     from pointcloud_stitching_tpu_torch.parallel import (
         make_sharded_integrate, make_sharded_raycast, shard_volume)
 
-    i1 = Intrinsics.create(fx=TSDF_FX, fy=TSDF_FY, ppx=W / 2.0, ppy=H / 2.0,
+    i1 = Intrinsics.create(fx=FX, fy=FY, ppx=W / 2.0, ppy=H / 2.0,
                            width=W, height=H, device=dev)
     intr = i1.stack([i1] * (TSDF_NCAM - 1))
     frames = [tuple(torch.from_numpy(a).to(dev) for a in tsdf_rig(k))
@@ -3442,7 +3377,7 @@ def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
         a = one["stitch"][i]
         name = ("make_shardmap_stitch" if kind == "shardmap"
                 else "make_sharded_stitch")
-        say(f"[13/15 parallel] (a) {labels[0]} {card}: {name} "
+        say(f"[13/16 parallel] (a) {labels[0]} {card}: {name} "
             f"{tag}: {SHARD_FRAMES} frames track mode, points_out "
             f"{a['pts'][0]}..{a['pts'][-1]}; 'auto' == 'torch' bit for "
             f"bit; |ext - stitch_step| {a['d_unsharded']:.3g} (points_out "
@@ -3879,7 +3814,7 @@ def prng_phase(dev, kb, report, kernels, card, drop_launches: dict,
     check(torch.equal(c, KP.scan16(p.cpu()).to(dev)),
           "(a) scan16 on the card differs from the CPU's")
     lib_cumsum = torch.cumsum(p, 0)
-    say(f"[15/15 draws] {card}: (a) threefry2x32 bit for bit plain at 1, "
+    say(f"[15/16 draws] {card}: (a) threefry2x32 bit for bit plain at 1, "
         f"{m3} and {jd['bits_n']} counters (bits and pairs); scan16 of the "
         f"flagship's {p.shape[0]}-slot mask ({int(flag.mask.sum())} valid) "
         f"bit for bit plain and the CPU, c[-1] = {float(c[-1]):.9g} "
@@ -4015,7 +3950,7 @@ def commands_phase(dev, kb, card) -> None:
                   f"want {per_frame} per frame")
         trace_mib = os.path.getsize(trace_file) / 2 ** 20
     plain = run_cluster(dev, "snappy", ["--codec", "snappy"], "")
-    say(f"[14/15 commands] {card}: (a) scripts/local_cluster_torch.py "
+    say(f"[14/16 commands] {card}: (a) scripts/local_cluster_torch.py "
         f"--cameras {NCAM} --frames {CLUSTER_FRAMES} at {W}x{H}, servers "
         f"and stitch_cli as processes on loopback: traced (zlib, "
         f"--save-dir, --trace-dir) {traced['frames']} frames, fps "
@@ -4072,6 +4007,57 @@ def commands_phase(dev, kb, card) -> None:
     say(f"    (c) {len(targets)} pcs-torch-* targets imported with jax "
         f"blocked ({proc.stdout.split()[-1]} modules loaded)")
     say(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+
+def json_numbers(x, path=""):
+    """(path, value) of every number in a parsed JSON value."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from json_numbers(v, f"{path}.{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from json_numbers(v, f"{path}[{i}]")
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield path, x
+
+
+def bench_phase(card) -> None:
+    """Phase 16: bench_torch.py as a process, its last line checked."""
+    import math
+
+    from bench_torch import MAX_LINE
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(REPO,
+                                                        "bench_torch.py")],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}:"
+                                f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    line = lines[-1]
+    check(len(line) <= MAX_LINE, f"bench_torch.py's last line has "
+                                 f"{len(line)} characters")
+    res = json.loads(line)
+    check({"metric", "value", "unit", "vs_baseline", "extras"} <= set(res),
+          f"bench_torch.py's last line lacks bench.py's keys: {sorted(res)}")
+    check(res["value"] > 0, f"bench_torch.py's value {res['value']}")
+    bad = [p for p, v in json_numbers(res) if not math.isfinite(v)]
+    check(not bad, f"bench_torch.py's last line has non-finite {bad}")
+    check(res["extras"]["tsdf"]["integrate_bitwise_mxu_vs_dense"] is True,
+          "bench_torch.py: the pruned integrate is not the dense one")
+    sections = {}
+    for ln in lines[:-1]:
+        if ln.startswith('{"section"'):
+            sec = json.loads(ln)
+            sections[sec.pop("section")] = sec
+    launches = sections["launches"]
+    say(f"[16/16 bench] {card}: bench_torch.py exit 0 in {wall:.1f} s "
+        f"({sections['run']['seconds_after_build']:.1f} s after the "
+        f"build), last line {len(line)} characters; launches by row: "
+        + "; ".join(f"{k} {v}" for k, v in launches.items()))
+    say(f"    bench_torch.py's line: {line}")
 
 
 if __name__ == "__main__":

@@ -49,7 +49,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
         else torch.cuda.get_device_name(0)
     print(f"{card} | torch {torch.__version__} cuda {torch.version.cuda}")
-    i1 = Intrinsics.create(fx=cs.TSDF_FX, fy=cs.TSDF_FY, ppx=cs.W / 2.0,
+    i1 = Intrinsics.create(fx=cs.FX, fy=cs.FY, ppx=cs.W / 2.0,
                            ppy=cs.H / 2.0, width=cs.W, height=cs.H,
                            device=dev)
     intr = i1.stack([i1] * (cs.TSDF_NCAM - 1))
