@@ -28,6 +28,7 @@ from ..ops.deproject import deproject, deproject_with_color, map_color
 from ..ops.voxel import decimate_depth, voxel_downsample
 from ..utils.config import StitchConfig
 from ..utils.platform import platform_device, set_full_fp32_matmul
+from ..utils.profiling import annotate
 from ..utils.types import Intrinsics, PointCloud, scalar
 
 
@@ -191,8 +192,11 @@ def _fused_output(cfg: StitchConfig, world: PointCloud,
     if cfg.crop_lo is not None:
         fused = crop_box(fused, cfg.crop_lo, cfg.crop_hi)
     leaf = cfg.out_voxel_leaf if out_leaf is None else out_leaf
-    return voxel_downsample(fused, leaf, capacity=cfg.out_capacity,
-                            impl=cfg.kernel_impl)
+    # a span of its own: the pass runs enough host operations that a
+    # trace's reading of pcs.output alone could not name its late gaps
+    with annotate("pcs.output.voxel"):
+        return voxel_downsample(fused, leaf, capacity=cfg.out_capacity,
+                                impl=cfg.kernel_impl)
 
 
 def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
@@ -205,12 +209,15 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
     icp_inl = torch.zeros((max(ncam - 1, 1),), dtype=torch.int32, device=dev)
     loop_err = torch.zeros((), device=dev)
     if cfg.icp_enabled and ncam > 1:
-        icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
-                                      capacity=cfg.icp_capacity,
-                                      impl=cfg.kernel_impl)
-        extrinsics, icp_err, icp_inl, loop_err = _ring_drift_correction(
-            cfg, icp_clouds, extrinsics)
-    out = _fused_output(cfg, _world_clouds(cfg, raw, extrinsics), out_leaf)
+        with annotate("pcs.icp"):
+            icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
+                                          capacity=cfg.icp_capacity,
+                                          impl=cfg.kernel_impl)
+            extrinsics, icp_err, icp_inl, loop_err = _ring_drift_correction(
+                cfg, icp_clouds, extrinsics)
+    with annotate("pcs.output"):
+        out = _fused_output(cfg, _world_clouds(cfg, raw, extrinsics),
+                            out_leaf)
     metrics = StitchMetrics(points_in=points_in, points_out=out.count(),
                             icp_mean_error=icp_err, icp_inliers=icp_inl,
                             loop_error=loop_err)
@@ -310,8 +317,9 @@ def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
     ncam = cfg.num_cameras
     if depths.shape[0] != ncam:
         raise ValueError(f"depths has {depths.shape[0]} cameras, cfg {ncam}")
-    raw, sub = _prepare(cfg, intr, depths, colors, cam_mask, color_intr,
-                        color_ext)
+    with annotate("pcs.prepare"):
+        raw, sub = _prepare(cfg, intr, depths, colors, cam_mask, color_intr,
+                            color_ext)
     return _stitch_tail(cfg, raw, extrinsics, raw.mask.sum(), sub, out_leaf)
 
 

@@ -33,6 +33,7 @@ import torch
 
 from ..kernels.nn_pallas import (nearest_neighbors_pruned,
                                  nn_batched_prepared, prepare_ref_batched)
+from ..utils.profiling import annotate
 from ..utils.types import PointCloud, scalar
 from .kabsch import kabsch
 from .nn import nearest_neighbors
@@ -96,14 +97,15 @@ def icp_batched(src: PointCloud, dst: PointCloud,
     err = torch.full((b,), float("inf"), device=src.xyz.device)
     n_in = torch.zeros((b,), device=src.xyz.device)
     for _ in range(iterations):
-        p = se3_apply(T, src.xyz)
-        idx, d2 = nn(p)
-        w = (src.mask & (d2 <= max_d2)).to(torch.float32)
-        w = _trim_weights(w, d2, trim_fraction)
-        dT = kabsch(p, _gather_rows(dst.xyz, idx), w)
-        n_in = w.sum(dim=-1)
-        err = (w * d2).sum(dim=-1) / torch.clamp(n_in, min=1.0)
-        T = mm(dT, T)
+        with annotate("pcs.icp.iter"):
+            p = se3_apply(T, src.xyz)
+            idx, d2 = nn(p)
+            w = (src.mask & (d2 <= max_d2)).to(torch.float32)
+            w = _trim_weights(w, d2, trim_fraction)
+            dT = kabsch(p, _gather_rows(dst.xyz, idx), w)
+            n_in = w.sum(dim=-1)
+            err = (w * d2).sum(dim=-1) / torch.clamp(n_in, min=1.0)
+            T = mm(dT, T)
     return ICPResult(T=T, mean_error=err, num_inliers=n_in.to(torch.int32),
                      iterations=torch.full((b,), iterations, dtype=torch.int32,
                                            device=T.device))
@@ -137,27 +139,29 @@ def icp_point_to_plane_batched(src: PointCloud, dst: PointCloud,
     err = torch.full((b,), float("inf"), device=dev)
     n_in = torch.zeros((b,), device=dev)
     for _ in range(iterations):
-        p = se3_apply(T, src.xyz)                        # [B, N, 3]
-        idx, d2 = nn(p)
-        q = _gather_rows(dst.xyz, idx)
-        n = _gather_rows(dst_normals, idx)
-        n_ok = (n * n).sum(dim=-1) > 0.25                # unit or zeroed
-        w = (src.mask & (d2 <= max_d2) & n_ok).to(torch.float32)
-        w = _trim_weights(w, d2, trim_fraction)
+        with annotate("pcs.icp.iter"):
+            p = se3_apply(T, src.xyz)                    # [B, N, 3]
+            idx, d2 = nn(p)
+            q = _gather_rows(dst.xyz, idx)
+            n = _gather_rows(dst_normals, idx)
+            n_ok = (n * n).sum(dim=-1) > 0.25            # unit or zeroed
+            w = (src.mask & (d2 <= max_d2) & n_ok).to(torch.float32)
+            w = _trim_weights(w, d2, trim_fraction)
 
-        r0 = ((p - q) * n).sum(dim=-1)                   # [B, N]
-        J = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)
-        wJ = w[..., None] * J
-        A = torch.einsum("bni,bnj->bij", wJ, J)
-        rhs = -torch.einsum("bni,bn->bi", J, w * r0)
-        # Tikhonov floor keeps degenerate frames (all rejected) solvable
-        A = A + 1e-8 * eye6
-        x = torch.linalg.solve_ex(A, rhs[..., None]).result[..., 0]
-        n_in = w.sum(dim=-1)
-        x = torch.where((n_in > 5.0)[:, None], x, 0.0)   # identity if starved
-        dT = _exp_se3(x)
-        err = (w * r0 * r0).sum(dim=-1) / torch.clamp(n_in, min=1.0)
-        T = mm(dT, T)
+            r0 = ((p - q) * n).sum(dim=-1)               # [B, N]
+            J = torch.cat([torch.linalg.cross(p, n, dim=-1), n], dim=-1)
+            wJ = w[..., None] * J
+            A = torch.einsum("bni,bnj->bij", wJ, J)
+            rhs = -torch.einsum("bni,bn->bi", J, w * r0)
+            # Tikhonov floor keeps degenerate frames (all rejected) solvable
+            A = A + 1e-8 * eye6
+            x = torch.linalg.solve_ex(A, rhs[..., None]).result[..., 0]
+            n_in = w.sum(dim=-1)
+            # identity if starved
+            x = torch.where((n_in > 5.0)[:, None], x, 0.0)
+            dT = _exp_se3(x)
+            err = (w * r0 * r0).sum(dim=-1) / torch.clamp(n_in, min=1.0)
+            T = mm(dT, T)
     return ICPResult(T=T, mean_error=err, num_inliers=n_in.to(torch.int32),
                      iterations=torch.full((b,), iterations, dtype=torch.int32,
                                            device=dev))

@@ -29,6 +29,7 @@ import torch
 
 from ..kernels.segment_reduce import (segment_sum_from_flags,
                                       segment_sum_sorted)
+from ..utils.profiling import annotate
 from ..utils.types import PointCloud, scalar
 
 _SENTINEL = 2 ** 31 - 1
@@ -224,7 +225,9 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
             # pack only when lossless: 8-bit integer colours
             fits = fits & (pc.rgb == torch.round(pc.rgb)).all() \
                 & ((pc.rgb >= 0) & (pc.rgb <= 255)).all()
-        if bool(fits):  # the one host sync of the pass
+        with annotate("pcs.sync"):
+            fits = bool(fits)  # the one host sync of the pass
+        if fits:
             flags, vals, min_ijk = _sorted_segments_packed(pc, leaf, ijk)
             return _finalize_packed(reduce_fn(flags, vals), min_ijk, leaf,
                                     has_rgb)

@@ -5,7 +5,9 @@ protocol, one ingest thread per camera, freshest-frame semantics,
 single-writer slots read by a snapshot, dead cameras dropped through
 ``cam_mask``, the software-pipelined ``run()`` (``overlap``,
 ``sync_every``, ``fps``, ``dead_timeout``), the on-demand pulls and the
-stage table (``snapshot``, ``h2d``, ``dispatch``, ``sync_wait``).
+stage table (``snapshot``, ``h2d``, ``dispatch``, ``sync_wait``; the port
+adds ``held``, a frame's wait between its dispatch and its sync, and
+``frame_age``, the snapshot's age of its oldest live camera frame).
 
 The host→device feed on a CUDA pipeline: each snapshot is written into a
 slot of a ring of **pinned** host buffers and copied with
@@ -33,6 +35,7 @@ import torch
 
 from ..models.stitcher import StitchingPipeline, StitchOutput
 from ..utils.metrics import FrameMetrics, StageTimer
+from ..utils.profiling import annotate
 from .wire import Kind, recv_frame, send_pull
 
 
@@ -349,20 +352,18 @@ class MulticameraClient:
 
     def _snapshot(self, wake: bool = True):
         """Copy the freshest frames into a staging slot; set its cam mask.
-        Returns (stage, number of live cameras)."""
+        Records the ``frame_age`` stage (the snapshot instant less the
+        oldest live camera's receipt) when a camera is live. Returns
+        (stage, number of live cameras)."""
         now = time.time()
-        t0 = time.time()
         stage = self._next_stage()
-        t_wait = time.time() - t0
         a = stage.np
         mask = a["mask"]
         if self.payload == "points":
             a["pmask"][...] = False
-        t_lock = t_copy = 0.0
+        oldest = None
         for i, s in enumerate(self._slots):
-            ta = time.time()
             with s.lock:
-                tb = time.time()
                 if self.payload == "points":
                     a["xyz"][i] = s.xyz
                     if a["rgb"] is not None and s.rgb is not None:
@@ -374,14 +375,13 @@ class MulticameraClient:
                         a["colors"][i] = s.rgb
                 fresh = s.alive and s.seq >= 0 and \
                     (now - s.stamp) <= self.stale_timeout
-            t_lock += tb - ta
-            t_copy += time.time() - tb
+                if fresh and (oldest is None or s.stamp < oldest):
+                    oldest = s.stamp
             mask[i] = fresh
         if wake:
             self._wake_pulls()
-        self.stages.record("snap_wait", t_wait)
-        self.stages.record("snap_lock", t_lock)
-        self.stages.record("snap_copy", t_copy)
+        if oldest is not None:
+            self.stages.record("frame_age", now - oldest)
         return stage, int(mask.sum())
 
     def _transfer(self, stage: _Stage):
@@ -429,6 +429,16 @@ class MulticameraClient:
         """Block until the frame's work finished (a scalar pull; the
         clouds stay on the device)."""
         return int(out.metrics.points_out)
+
+    def _timed_sync(self, out: StitchOutput, t_out: float) -> float:
+        """``_sync`` a frame of ``run``'s pipeline whose dispatch ended at
+        ``t_out``: records the ``held`` stage (how long the loop held the
+        frame before its sync). Returns the instant the sync began."""
+        t_wait = time.time()
+        self.stages.record("held", t_wait - t_out)
+        with annotate("pcs.client.sync"):
+            self._sync(out)
+        return t_wait
 
     def step(self) -> Optional[StitchOutput]:
         """One serial stitch tick over the freshest frames (snapshot → H2D →
@@ -500,23 +510,29 @@ class MulticameraClient:
                     if tick is not None:
                         # pace the dispatch side only; the drain below must
                         # never wait on the schedule
-                        delay = next_t - time.time()
-                        if delay > 0:
-                            self._stop.wait(delay)
+                        with annotate("pcs.client.pace"):
+                            delay = next_t - time.time()
+                            if delay > 0:
+                                self._stop.wait(delay)
                         next_t = max(next_t + tick, time.time())
                     t0 = time.time()
-                    stage, live = self._snapshot(wake=False)
+                    with annotate("pcs.client.snapshot"):
+                        stage, live = self._snapshot(wake=False)
                     self.metrics.dropped_cameras = \
                         self.pipeline.cfg.num_cameras - live
                     t1 = time.time()
                     if live > 0:
-                        dev, npix = self._transfer(stage)
+                        with annotate("pcs.client.h2d"):
+                            dev, npix = self._transfer(stage)
                         t2 = time.time()
-                        out = self._dispatch(dev)
-                        self.stages.record("dispatch", time.time() - t2)
+                        with annotate("pcs.client.dispatch"):
+                            out = self._dispatch(dev)
+                        t_out = time.time()
+                        self.stages.record("dispatch", t_out - t2)
                         self._wake_pulls()  # decode rides under sync_wait
-                        # latency spans snapshot start -> sync
-                        nxt = (out, t0, npix)
+                        # latency spans snapshot start -> sync; the frame
+                        # is held from its dispatch's end to its sync
+                        nxt = (out, t0, npix, t_out)
                     else:
                         t2, nxt = t1, None
                         self._wake_pulls()
@@ -533,18 +549,18 @@ class MulticameraClient:
                     self.stages.record("h2d", t2 - t1)
                 # drain frame N while N+1 runs (its copy is already enqueued)
                 if pending is not None:
-                    p_out, p_t0, p_npix = pending
+                    p_out, p_t0, p_npix, p_out_t = pending
                     last = num_frames is not None and n + 1 >= num_frames
                     if n % sync_every == 0 or last:
-                        t_wait = time.time()
-                        self._sync(p_out)
+                        t_wait = self._timed_sync(p_out, p_out_t)
                         t3 = time.time()
                         self.stages.record("sync_wait", t3 - t_wait)
                         self.metrics.record(t3 - p_t0, points=p_npix)
                     else:
                         self.metrics.record_unsynced(points=p_npix)
                     if on_frame is not None:
-                        on_frame(n, p_out)
+                        with annotate("pcs.client.deliver"):
+                            on_frame(n, p_out)
                     n += 1
                     last_alive = time.time()
                     if num_frames is not None and n >= num_frames:
@@ -552,13 +568,13 @@ class MulticameraClient:
                 pending = nxt
             if pending is not None and not self._stop.is_set() and \
                     (num_frames is None or n < num_frames):
-                p_out, p_t0, p_npix = pending
-                t_wait = time.time()
-                self._sync(p_out)
+                p_out, p_t0, p_npix, p_out_t = pending
+                t_wait = self._timed_sync(p_out, p_out_t)
                 self.stages.record("sync_wait", time.time() - t_wait)
                 self.metrics.record(time.time() - p_t0, points=p_npix)
                 if on_frame is not None:
-                    on_frame(n, p_out)
+                    with annotate("pcs.client.deliver"):
+                        on_frame(n, p_out)
         except BaseException:
             # an exception escaping the loop (including KeyboardInterrupt)
             # tears the client down: the in-flight frame is unowned

@@ -395,6 +395,28 @@ def test_bounded_run_dispatches_exactly_n(rig):
 
 
 @time_limit(30)
+@pytest.mark.parametrize("overlap", [True, False])
+def test_stream_records_held_and_frame_age(rig, overlap):
+    """One ``held`` sample per synced frame of the pipelined loop, one
+    ``frame_age`` per dispatched frame, each >= 0; the snapshot's own
+    per-camera timings are gone."""
+    servers = [rig(synthetic_frames(8, H, W, seed=s)) for s in range(2)]
+    client = rig.client(MulticameraClient(
+        [("127.0.0.1", s.port) for s in servers],
+        _pipeline(2, icp=False)).start())
+    assert client.wait_for_first_frames(timeout=10)
+    m = client.run(num_frames=5, overlap=overlap, sync_every=2)
+    st = client.stages.stages
+    # synced: frames 0, 2 and the last, 4 (the serial loop syncs each)
+    assert len(m.latencies) == (3 if overlap else 5)
+    assert len(st.get("held", [])) == (3 if overlap else 0)
+    assert len(st["frame_age"]) == 5
+    assert all(v >= 0 for k in ("held", "frame_age")
+               for v in st.get(k, []))
+    assert not {"snap_wait", "snap_lock", "snap_copy"} & set(st)
+
+
+@time_limit(30)
 def test_run_fps_paces_the_loop(rig):
     srv = rig(synthetic_frames(8, 48, 64, seed=0))
     client = rig.client(MulticameraClient(
