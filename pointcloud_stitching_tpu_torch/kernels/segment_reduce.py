@@ -89,6 +89,15 @@ def _lookback_scratch(kernel: str, dev: torch.device, stream: int,
     return sc
 
 
+def take_scratch(dev: torch.device, stream: int) -> list:
+    """Take K1's and K2's look-back scratch of ``stream`` out of the table
+    and return it: a CUDA graph captured on that stream holds its
+    addresses, so it keeps the scratch alive and for itself, and a later
+    call on the stream gets fresh scratch."""
+    keys = [k for k in _SCRATCH if k[1:] == (dev.index, stream)]
+    return [_SCRATCH.pop(k) for k in keys]
+
+
 def k1_grid(n: int, ch: int, capacity: int) -> tuple[int, int]:
     """(tiles, zero-only blocks) of K1's one launch: a block per
     K2_TILE_ROWS rows, then a block per K1_ZERO_FLOATS floats of the slots

@@ -8,24 +8,29 @@ a batch dimension, and one step does
   ring-correction composition → SE(3) into world → fuse → optional crop →
   one global voxel pass (K1)
 
-on the device, eagerly (the JAX package jits the whole step). Colour rides
+on the device, eagerly (the JAX package jits the whole step); the stateful
+``StitchingPipeline`` replays the ICP stage (voxel pass to ring correction)
+as one CUDA graph where it can. Colour rides
 the cloud's rgb channel: depth-aligned (``deproject_with_color``) or
 texture-mapped from a colour stream with its own calibration
 (``map_color``); the coloured global pass sums 10 channels through K1.
 """
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.build import LAUNCHES
+from ..kernels.segment_reduce import take_scratch
 from ..ops.filters import crop_box
 from ..ops.fuse import fuse_batched
 from ..ops.icp import icp_batched, icp_point_to_plane_batched
 from ..ops.normals import grid_normals
 from ..ops.se3 import mm, se3_apply, se3_blend, se3_identity, se3_power
 from ..ops.deproject import deproject, deproject_with_color, map_color
-from ..ops.voxel import decimate_depth, voxel_downsample
+from ..ops.voxel import decimate_depth, packed_impossible, voxel_downsample
 from ..utils.config import StitchConfig
 from ..utils.platform import platform_device, set_full_fp32_matmul
 from ..utils.profiling import annotate
@@ -199,10 +204,101 @@ def _fused_output(cfg: StitchConfig, world: PointCloud,
                                 impl=cfg.kernel_impl)
 
 
+def _icp_stage(cfg: StitchConfig, sub: PointCloud, extrinsics: torch.Tensor):
+    """The ``pcs.icp`` stage: the ICP voxel pass (K2), then the ring drift
+    correction. Returns (refined [ncam,4,4], per-pair errors, inliers,
+    loop error)."""
+    icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
+                                  capacity=cfg.icp_capacity,
+                                  impl=cfg.kernel_impl)
+    return _ring_drift_correction(cfg, icp_clouds, extrinsics)
+
+
+def icp_graph_engages(device, icp_enabled: bool, num_cameras: int,
+                      icp_voxel_leaf, point_to_plane: bool) -> bool:
+    """Whether ``StitchingPipeline`` replays its ICP stage as one CUDA
+    graph: its tensors are on CUDA, the stage runs (ICP on, more than one
+    camera), the ICP voxel pass's branch is known on the host (a Python
+    leaf above 3 cm: no sync, see ``ops.voxel.packed_impossible``), and the
+    iterations solve point to plane (normals ride ``rgb``): the point-to-
+    point step's SVD reads its status on the host, which a capture
+    refuses."""
+    return (torch.device(device).type == "cuda" and icp_enabled
+            and num_cameras > 1 and packed_impossible(icp_voxel_leaf)
+            and point_to_plane)
+
+
+class _ICPGraph:
+    """The ``pcs.icp`` stage captured once in a CUDA graph and replayed.
+
+    The capture runs at the first call, and again when what the captured
+    work depends on changes (the key: the configuration, the ICP cloud's
+    shape, whether normals ride ``rgb``, the device). The stage first runs
+    eagerly on the capture stream, which gives that call's outputs (so the
+    frame runs the stage once) and makes the K2 look-back scratch of that
+    stream and cuBLAS's workspace exist outside the graph's memory pool; the
+    graph then takes that scratch for its own (``take_scratch``), since its
+    nodes hold the addresses. A later call copies the ICP cloud and the
+    extrinsics into the static inputs, replays, and returns clones of the
+    static outputs, which the next replay overwrites while a caller may
+    still hold this frame. The kernel launch counter counts each frame's
+    stage once, as an eager stage would."""
+
+    def __init__(self):
+        self.key = None
+
+    def __call__(self, cfg: StitchConfig, sub: PointCloud,
+                 extrinsics: torch.Tensor):
+        key = (cfg, sub.xyz.shape, sub.rgb is None, extrinsics.device)
+        if key != self.key:
+            out = self._capture(cfg, sub, extrinsics)
+            self.key = key
+            return out
+        for static, t in zip(self.inputs, (sub.xyz, sub.mask, sub.rgb,
+                                           extrinsics)):
+            if t is not None:
+                static.copy_(t)
+        with annotate("pcs.icp.graph"):
+            self.graph.replay()
+        LAUNCHES.update(self.launches)
+        return tuple(t.clone() for t in self.out)
+
+    def _capture(self, cfg: StitchConfig, sub: PointCloud,
+                 extrinsics: torch.Tensor):
+        self.inputs = [None if t is None else
+                       t.clone(memory_format=torch.contiguous_format)
+                       for t in (sub.xyz, sub.mask, sub.rgb, extrinsics)]
+        xyz, mask, rgb, ext = self.inputs
+        static = PointCloud(xyz=xyz, mask=mask, rgb=rgb)
+        dev = extrinsics.device
+        current = torch.cuda.current_stream(dev)
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            out = _icp_stage(cfg, static, ext)
+        counted = collections.Counter(LAUNCHES)
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: the streaming client's ingest threads may allocate
+        # pinned memory meanwhile, which a global capture would refuse
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.out = _icp_stage(cfg, static, ext)
+        self.launches = collections.Counter(LAUNCHES) - counted
+        LAUNCHES.clear()
+        LAUNCHES.update(counted)
+        self.scratch = take_scratch(dev, stream.cuda_stream)
+        current.wait_stream(stream)
+        for t in out:
+            t.record_stream(current)
+        return out
+
+
 def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
                  points_in: torch.Tensor, sub: PointCloud,
-                 out_leaf=None) -> StitchOutput:
-    """Shared back half: ring drift correction → world → fuse → voxel."""
+                 out_leaf=None, icp_stage=_icp_stage) -> StitchOutput:
+    """Shared back half: ring drift correction → world → fuse → voxel.
+    ``icp_stage`` runs the ``pcs.icp`` stage (``_icp_stage`` or a
+    pipeline's ``_ICPGraph``)."""
     ncam = cfg.num_cameras
     dev = extrinsics.device
     icp_err = torch.zeros((max(ncam - 1, 1),), device=dev)
@@ -210,11 +306,8 @@ def _stitch_tail(cfg: StitchConfig, raw: PointCloud, extrinsics: torch.Tensor,
     loop_err = torch.zeros((), device=dev)
     if cfg.icp_enabled and ncam > 1:
         with annotate("pcs.icp"):
-            icp_clouds = voxel_downsample(sub, cfg.icp_voxel_leaf,
-                                          capacity=cfg.icp_capacity,
-                                          impl=cfg.kernel_impl)
-            extrinsics, icp_err, icp_inl, loop_err = _ring_drift_correction(
-                cfg, icp_clouds, extrinsics)
+            extrinsics, icp_err, icp_inl, loop_err = icp_stage(
+                cfg, sub, extrinsics)
     with annotate("pcs.output"):
         out = _fused_output(cfg, _world_clouds(cfg, raw, extrinsics),
                             out_leaf)
@@ -314,13 +407,23 @@ def stitch_step(cfg: StitchConfig, intr: Intrinsics, extrinsics: torch.Tensor,
         projecting each point into the colour camera (``map_color``).
       out_leaf: optional 0-d tensor overriding cfg.out_voxel_leaf.
     """
+    return _stitch_depths(cfg, intr, extrinsics, depths, colors, cam_mask,
+                          color_intr, color_ext, out_leaf)
+
+
+def _stitch_depths(cfg: StitchConfig, intr: Intrinsics,
+                   extrinsics: torch.Tensor, depths: torch.Tensor,
+                   colors, cam_mask, color_intr, color_ext, out_leaf,
+                   icp_stage=_icp_stage) -> StitchOutput:
+    """``stitch_step`` with the ``pcs.icp`` stage given."""
     ncam = cfg.num_cameras
     if depths.shape[0] != ncam:
         raise ValueError(f"depths has {depths.shape[0]} cameras, cfg {ncam}")
     with annotate("pcs.prepare"):
         raw, sub = _prepare(cfg, intr, depths, colors, cam_mask, color_intr,
                             color_ext)
-    return _stitch_tail(cfg, raw, extrinsics, raw.mask.sum(), sub, out_leaf)
+    return _stitch_tail(cfg, raw, extrinsics, raw.mask.sum(), sub, out_leaf,
+                        icp_stage)
 
 
 def stitch_points_step(cfg: StitchConfig, extrinsics: torch.Tensor,
@@ -350,6 +453,10 @@ class StitchingPipeline:
         each frame's correction is computed fresh from them;
       * 'track': refined extrinsics become the next frame's base;
       * 'ema': exponential blend toward the refined transforms.
+
+    On CUDA, ``__call__`` replays its ICP stage as one CUDA graph where
+    ``icp_graph_engages`` says it can (the same kernels, bit for bit the
+    eager result); ``step_points``' point-to-point ICP runs eagerly.
     """
 
     def __init__(self, cfg: StitchConfig, intr: Intrinsics, extrinsics,
@@ -386,6 +493,11 @@ class StitchingPipeline:
         if cfg.out_leaf_autofit:
             self.out_leaf = torch.full((), cfg.out_voxel_leaf,
                                        dtype=torch.float32, device=self.device)
+        self._icp_stage = _icp_stage
+        if icp_graph_engages(self.device, cfg.icp_enabled, cfg.num_cameras,
+                             cfg.icp_voxel_leaf,
+                             cfg.icp_variant == "point_to_plane"):
+            self._icp_stage = _ICPGraph()
 
     def _update(self, out: StitchOutput) -> None:
         if self.cfg.icp_enabled and self.update_mode == "track":
@@ -405,9 +517,9 @@ class StitchingPipeline:
             colors = torch.as_tensor(colors).to(self.device)
         if cam_mask is not None:
             cam_mask = torch.as_tensor(cam_mask).to(self.device)
-        out = stitch_step(self.cfg, self.intr, self.extrinsics, depths,
-                          colors, cam_mask, self.color_intr, self.color_ext,
-                          self.out_leaf)
+        out = _stitch_depths(self.cfg, self.intr, self.extrinsics, depths,
+                             colors, cam_mask, self.color_intr,
+                             self.color_ext, self.out_leaf, self._icp_stage)
         self._update(out)
         return out
 

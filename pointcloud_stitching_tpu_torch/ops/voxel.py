@@ -21,10 +21,15 @@ the JAX package:
     int64 key (k1 << 32) | kz — with the float coordinates as payload.
 
 The branch choice is a Python ``if`` on a 0-d device bool: one host sync
-per voxel pass (the JAX package's ``lax.cond`` has none).
+per voxel pass (the JAX package's ``lax.cond`` has none). Where the leaf is
+a Python number above 3 cm the packed branch cannot be taken, so the pass
+takes the exact branch without the sync (``packed_impossible``).
 """
 from __future__ import annotations
 
+import numbers
+
+import numpy as np
 import torch
 
 from ..kernels.segment_reduce import (segment_sum_from_flags,
@@ -35,6 +40,15 @@ from ..utils.types import PointCloud, scalar
 _SENTINEL = 2 ** 31 - 1
 _PACK_MAX_LEAF = 0.03
 _PACK_MAX_CELLS = float(2 ** 30)
+
+
+def packed_impossible(leaf) -> bool:
+    """True when the host knows, without reading the device, that the
+    packed branch is out: ``leaf`` is a Python number whose float32 value
+    (the one the device compares) is above ``_PACK_MAX_LEAF``. A tensor
+    leaf, or a leaf of 3 cm or less, needs the scene's extents."""
+    return (isinstance(leaf, numbers.Real) and not torch.is_tensor(leaf)
+            and bool(np.float32(leaf) > np.float32(_PACK_MAX_LEAF)))
 
 
 def voxel_indices(xyz: torch.Tensor, mask: torch.Tensor, leaf):
@@ -214,7 +228,7 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
         return segment_sum_from_flags(vals, flags, capacity, impl=impl)
 
     has_rgb = pc.rgb is not None
-    if packed == "auto":
+    if packed == "auto" and not packed_impossible(leaf):
         ijk = voxel_indices(pc.xyz, pc.mask, leaf)
         ext = _extents(ijk)
         cells = ext.to(torch.float32).prod(dim=-1)

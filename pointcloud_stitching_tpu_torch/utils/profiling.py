@@ -7,8 +7,9 @@ kernels, beside the host-side stage timer. The stitch step and the
 streaming loop open named spans (``annotate``) that such a trace shows on
 the device's clock:
 
-  pcs.prepare, pcs.icp (> pcs.icp.iter), pcs.output, pcs.sync (each
-  blocking device-to-host read of the step); pcs.client.pace, .snapshot,
+  pcs.prepare, pcs.icp (> pcs.icp.iter, or pcs.icp.graph around the
+  replay of the captured stage), pcs.output, pcs.sync (each blocking
+  device-to-host read of the step); pcs.client.pace, .snapshot,
   .h2d, .dispatch, .sync, .deliver (``MulticameraClient.run``).
 """
 from __future__ import annotations

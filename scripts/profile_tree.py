@@ -77,9 +77,12 @@ def stage_times(ST, V, pipe, depths):
     """{stage: (host ms, device span ms)} per frame over FRAMES frames of
     ``pipe``, with timers wrapped around the stage functions of the
     stitcher module ``ST`` and the INNER ones of the voxel module ``V``;
-    'frame' is the whole call, 'rest' the frame less the stages."""
+    'frame' is the whole call, 'rest' the frame less the stages. The
+    pipeline runs its ICP stage eagerly here: a replayed stage calls none
+    of the wrapped functions."""
     import torch
     calls = []
+    pipe._icp_stage = ST._icp_stage
 
     def timed(name, fn):
         def run(*args, **kwargs):
