@@ -8,6 +8,9 @@ size on the card (the benchmark's runs never run this):
   nearest precision below the configuration's float32: float32 with TF32
   matrix products (the program turns TF32 off), judged the same way.
 
+A configuration with colour feeds both its colour cycle
+(``scene.render_color``) and reads ``color_off_pct`` too.
+
     python3 benchmark/control.py --config rig8_ring_icp --seeds 1-12 \
         --control-seeds 1-3 --frames 15
 
@@ -40,10 +43,15 @@ def seeds(text: str) -> list[int]:
 
 def readings(cfg: dict, seed: int, frames: int, control: bool,
              dev) -> list[dict]:
-    """The three numbers of each of ``frames`` seeded cycle frames of
-    ``seed``."""
+    """The numbers of each of ``frames`` seeded cycle frames of ``seed``."""
     rig = scene.make_rig(cfg, seed)
     cycle = scene.render_cycle(cfg, rig, seed, dev)
+    col = harness.color_of(cfg)
+    colors = None if col is None else scene.render_color(cfg, rig, seed, dev)
+
+    def color(f):
+        return None if colors is None else colors[f]
+
     picks = random.Random(seed).sample(range(len(cycle)), frames)
     intr, st = harness.intr_of(cfg), cfg["stitch"]
     ctx = harness.Context("control", cfg, {}, seed, 0.0, False, dev, 0.0)
@@ -52,8 +60,12 @@ def readings(cfg: dict, seed: int, frames: int, control: bool,
         torch.backends.cuda.matmul.allow_tf32 = True
         torch.set_float32_matmul_precision("high")
         try:
-            made = [reference.stitch(cycle[f], rig.calib.to(dev), intr, st,
-                                     torch.float32)[:2] for f in picks]
+            made = []
+            for f in picks:
+                ext, xyz, _, rgb = reference.stitch(
+                    cycle[f], rig.calib.to(dev), intr, st, torch.float32,
+                    colors=color(f), color=col)
+                made.append((ext, xyz, rgb))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.set_float32_matmul_precision("highest")
@@ -61,10 +73,14 @@ def readings(cfg: dict, seed: int, frames: int, control: bool,
         pipe = ctx.pipeline(rig.calib)
         made = []
         for f in picks:
-            o = pipe(cycle[f])
-            made.append((o.extrinsics, o.cloud.xyz[o.cloud.mask]))
-    for f, (ext, xyz) in zip(picks, made):
-        r = check.judge(ext, xyz, cycle[f], rig.calib, intr, st, dev)
+            o = pipe(cycle[f], color(f))
+            m = o.cloud.mask
+            made.append((o.extrinsics, o.cloud.xyz[m],
+                         None if col is None else o.cloud.rgb[m]))
+    for f, (ext, xyz, rgb) in zip(picks, made):
+        kw = {} if col is None else {"rgb": rgb, "colors": color(f),
+                                     "color": col}
+        r = check.judge(ext, xyz, cycle[f], rig.calib, intr, st, dev, **kw)
         out.append({"frame": f, **r})
     return out
 

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from . import check, trace
+from . import check, scene, trace
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -73,6 +73,26 @@ def intr_of(cfg: dict) -> dict:
             "ppy": rig["height"] / 2.0}
 
 
+def color_of(cfg: dict) -> dict | None:
+    """The colour sensor of a configuration with a ``color`` block, as the
+    reference and the pipeline take it (intrinsics, ``width``, ``height``,
+    the depth-to-colour extrinsic ``ext`` [4, 4] float64, ``aligned``), or
+    None. The ``stitch`` block has to ask for the same colour."""
+    if not scene.has_color(cfg):
+        return None
+    blk, st = cfg["rig"]["color"], cfg["stitch"]
+    aligned = scene.color_aligned(cfg)
+    dims = [None, None] if aligned else [blk["height"], blk["width"]]
+    if not st.get("with_color") or \
+            [st.get("color_height"), st.get("color_width")] != dims:
+        raise ValueError("the stitch block's with_color, color_height and "
+                         "color_width do not match the rig's colour block")
+    return {"fx": blk["fx"], "fy": blk["fy"], "ppx": blk["ppx"],
+            "ppy": blk["ppy"], "width": blk["width"],
+            "height": blk["height"], "ext": scene.depth_to_color(cfg),
+            "aligned": aligned}
+
+
 @dataclasses.dataclass
 class Context:
     """What a runner needs for one run of one cell."""
@@ -92,18 +112,29 @@ class Context:
 
     def pipeline(self, calib: torch.Tensor):
         """The system under test: a ``StitchingPipeline`` of this
-        configuration at the calibration ``calib``."""
+        configuration at the calibration ``calib``; a colour stream of its
+        own resolution gets the colour intrinsics and depth-to-colour
+        extrinsics, as ``stitch_cli --color-intr-dir`` gives them."""
         from pointcloud_stitching_tpu_torch import (Intrinsics,
                                                     StitchingPipeline)
         rig = self.cfg["rig"]
+        n = rig["cameras"]
         i0 = Intrinsics.create(fx=rig["fx"], fy=rig["fy"],
                                ppx=rig["width"] / 2.0,
                                ppy=rig["height"] / 2.0, width=rig["width"],
                                height=rig["height"], device=self.device)
-        intr = i0.stack([i0] * (rig["cameras"] - 1))
+        intr = i0.stack([i0] * (n - 1))
+        col, kw = color_of(self.cfg), {}
+        if col is not None and not col["aligned"]:
+            c0 = Intrinsics.create(fx=col["fx"], fy=col["fy"],
+                                   ppx=col["ppx"], ppy=col["ppy"],
+                                   width=col["width"], height=col["height"],
+                                   device=self.device)
+            kw = {"color_intr": c0.stack([c0] * (n - 1)),
+                  "color_ext": col["ext"].to(torch.float32).repeat(n, 1, 1)}
         return StitchingPipeline(self.stitch_config(), intr, calib,
                                  update_mode=self.cfg["update_mode"],
-                                 device=self.device)
+                                 device=self.device, **kw)
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -152,10 +183,15 @@ def run_cell(cell: str, seed: int, seconds: float, trace_on: bool,
     res = drive(ctx)
     if ctx.trace and res["span"] is None:
         raise RuntimeError("the window closed before its traced span")
+    col = color_of(cfg)
     readings = [check.judge(s["ext"], s["xyz"], s["depths"], s["calib"],
-                            intr_of(cfg), cfg["stitch"], ctx.device)
+                            intr_of(cfg), cfg["stitch"], ctx.device,
+                            **({} if col is None else {
+                                "rgb": s["rgb"], "colors": s["colors"],
+                                "color": col}))
                 for s in res["samples"]]
-    correct, table = check.verdict(readings, cfg["limits"])
+    correct, table = check.verdict(readings, cfg["limits"],
+                                   color=col is not None)
     # a frame that says the wrong thing is not correct; one that lacked a
     # camera the client found stale is a failure, not a wrong answer
     correct = correct and res["attempted"] > 0 and res["wrong"] == 0

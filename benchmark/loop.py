@@ -8,7 +8,10 @@ i = 0, 1, ..., in windows of ``window_frames`` calls, each closed by one
 scalar pull, until ``--seconds`` have passed; it is timed whole:
 ``frame_ms`` is its wall time over every frame stitched in it. A traced
 run profiles window number ``trace_window`` and counts its frames' work
-(``reference.work``) once the window has closed.
+(``reference.work``) once the window has closed. A rig with colour keeps
+its colour cycle (``scene.render_color``) resident beside the depth and
+passes frame i mod K's colour with its depth; each judged frame keeps its
+voxels' mean colours beside the centroids.
 """
 from __future__ import annotations
 
@@ -34,11 +37,17 @@ def run(ctx) -> dict:
     rig = scene.make_rig(ctx.cfg, ctx.seed)
     frames = scene.render_cycle(ctx.cfg, rig, ctx.seed, dev)
     k = frames.shape[0]
+    colors = (scene.render_color(ctx.cfg, rig, ctx.seed, dev)
+              if scene.has_color(ctx.cfg) else None)
+
+    def color(j):
+        return None if colors is None else colors[j % k]
+
     ctx.sync()
     render_s = time.perf_counter() - t
     pipe = ctx.pipeline(rig.calib)
     for i in range(k * mix["warmup_cycles"]):
-        out = pipe(frames[i % k])
+        out = pipe(frames[i % k], color(i))
     int(out.metrics.points_out)
     warm_s = time.perf_counter() - t - render_s
     rng = random.Random(ctx.seed)
@@ -57,12 +66,13 @@ def run(ctx) -> dict:
             prof = trace.profiler(dev)
             prof.__enter__()
         for _ in range(w):
-            out = pipe(frames[i % k])
+            out = pipe(frames[i % k], color(i))
             counts.append(out.metrics.points_out)
             exts.append(out.extrinsics)
             if i in sampled:
                 kept[i] = (out.extrinsics.clone(), out.cloud.xyz.clone(),
-                           out.cloud.mask.clone())
+                           out.cloud.mask.clone(),
+                           None if colors is None else out.cloud.rgb.clone())
             i += 1
         int(out.metrics.points_out)
         marks.append(time.perf_counter())
@@ -92,8 +102,10 @@ def run(ctx) -> dict:
                      for j in range(first, first + w)]
     cap = ctx.cfg["stitch"]["out_capacity"]
     samples = [{"ext": e.cpu(), "xyz": xyz[m].cpu(),
-                "depths": frames[j % k].cpu(), "calib": rig.calib}
-               for j, (e, xyz, m) in sorted(kept.items())]
+                "depths": frames[j % k].cpu(), "calib": rig.calib,
+                **({} if rgb is None else {"rgb": rgb[m].cpu(),
+                                           "colors": color(j).cpu()})}
+               for j, (e, xyz, m, rgb) in sorted(kept.items())]
     info = {"frames": i, "windows": windows, "window_s": elapsed,
             "sampled": sorted(kept), "voxels_max": int(counts.max()),
             "saturated_frames": int((counts >= cap).sum()),
@@ -114,7 +126,7 @@ def run(ctx) -> dict:
                           for key, v in wk.items()})
         info["traced_work"] = {key: v / len(span.work)
                                for key, v in total.items()}
-    del frames, kept, exts
+    del frames, colors, kept, exts
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"end_to_end": {"frame_ms": elapsed / i * 1e3},

@@ -24,7 +24,12 @@ one camera pair at a time:
   the pair corrections 1..k, and the loop residual is spread along the ring
   as r^(-k/n) when it passes the closure gates;
 * the fused cloud: every valid pixel of every camera moved into the world,
-  cropped to [crop_lo, crop_hi], through a voxel grid of ``out_voxel_leaf``.
+  cropped to [crop_lo, crop_hi], through a voxel grid of ``out_voxel_leaf``;
+* with colour, each point's colour (librealsense ``rs2::pointcloud::map_to``
+  for a colour stream of its own: the point moved by the depth-to-colour
+  extrinsic, projected with the colour intrinsics, the nearest pixel, zero
+  outside the colour frame; the point's own pixel for depth-aligned
+  colour), averaged over each voxel's points beside the centroid.
 
 Matrix products go through ``torch.matmul``, so a float32 ``dtype`` with
 TF32 allowed computes them at TF32: the control of ``check.py``.
@@ -226,14 +231,45 @@ def ring_icp(clouds, calib: torch.Tensor, cfg: dict) -> torch.Tensor:
     return torch.stack([torch.matmul(corr[k], calib[k]) for k in range(n)])
 
 
-def fused_points(points, ext: torch.Tensor, cfg: dict) -> torch.Tensor:
+def map_color(xyz: torch.Tensor, valid: torch.Tensor, image: torch.Tensor,
+              color: dict, dtype=torch.float64) -> torch.Tensor:
+    """Each point's colour [h, w, 3] in ``dtype`` from one camera's float32
+    points ``xyz`` [h, w, 3] (``valid`` [h, w]) and its colour frame
+    ``image`` [hc, wc, 3] uint8. Depth-aligned colour (``color['aligned']``)
+    is the point's own pixel. Else the point is moved by the
+    depth-to-colour extrinsic ``color['ext']`` and projected with the
+    colour intrinsics, u = x / z * fx + ppx, and takes the nearest pixel
+    (rounded half to even); a point behind the sensor (z <= 1e-9) or
+    outside the frame keeps its geometry and gets zero colour, as does an
+    invalid one."""
+    if color["aligned"]:
+        return torch.where(valid[..., None], image.to(dtype), 0.0)
+    hc, wc = image.shape[:2]
+    p = apply(color["ext"].to(dtype=dtype, device=xyz.device), xyz.to(dtype))
+    front = p[..., 2] > 1e-9
+    z = torch.where(front, p[..., 2], 1.0)
+    u = torch.round(p[..., 0] / z * color["fx"] + color["ppx"])
+    v = torch.round(p[..., 1] / z * color["fy"] + color["ppy"])
+    inside = valid & front & (u >= 0) & (u < wc) & (v >= 0) & (v < hc)
+    idx = (torch.clamp(v, 0, hc - 1) * wc
+           + torch.clamp(u, 0, wc - 1)).to(torch.int64)
+    rgb = image.reshape(hc * wc, 3)[idx].to(dtype)
+    return torch.where(inside[..., None], rgb, 0.0)
+
+
+def fused_points(points, ext: torch.Tensor, cfg: dict, colors=None):
     """Every camera's valid points [(xyz [P, 3])] moved by ``ext`` [C, 4,
-    4] into the world and cropped to [crop_lo, crop_hi]: [N, 3]."""
+    4] into the world and cropped to [crop_lo, crop_hi]: [N, 3]; with
+    each camera's point colours ``colors`` [(rgb [P, 3])], also theirs
+    [N, 3]."""
     world = torch.cat([apply(ext[c], p.to(ext.dtype))
                        for c, p in enumerate(points)])
     lo = torch.tensor(cfg["crop_lo"], dtype=world.dtype, device=world.device)
     hi = torch.tensor(cfg["crop_hi"], dtype=world.dtype, device=world.device)
-    return world[((world >= lo) & (world <= hi)).all(-1)]
+    keep = ((world >= lo) & (world <= hi)).all(-1)
+    if colors is None:
+        return world[keep]
+    return world[keep], torch.cat(colors)[keep]
 
 
 def fused_cloud(points, ext: torch.Tensor, cfg: dict) -> torch.Tensor:
@@ -271,21 +307,33 @@ def work(depths: torch.Tensor, ext: torch.Tensor, intr: dict,
 
 
 def stitch(depths: torch.Tensor, calib: torch.Tensor, intr: dict, cfg: dict,
-           dtype=torch.float64, cloud_ext: torch.Tensor | None = None):
+           dtype=torch.float64, cloud_ext: torch.Tensor | None = None,
+           colors: torch.Tensor | None = None, color: dict | None = None):
     """The reference's stitch of one frame set.
 
     depths: [C, h, w] raw depth; calib: [C, 4, 4] calibrated poses; intr:
-    fx, fy, ppx, ppy; cfg: the StitchConfig fields. The fused cloud is
-    built with ``cloud_ext`` where given (the extrinsics under judgement),
-    else with the reference's own. Returns (extrinsics [C, 4, 4], centroids
-    [U, 3]), both in ``dtype``, and each camera's number of ICP voxels."""
+    fx, fy, ppx, ppy; cfg: the StitchConfig fields; with colour, the
+    colour frames ``colors`` [C, hc, wc, 3] uint8 of the sensor ``color``
+    (see ``map_color``). The fused cloud is built with ``cloud_ext`` where
+    given (the extrinsics under judgement), else with the reference's own.
+    Returns (extrinsics [C, 4, 4], centroids [U, 3]), both in ``dtype``,
+    each camera's number of ICP voxels, and the voxels' mean colours [U, 3]
+    in ``dtype`` (None without colour)."""
     calib = calib.to(dtype)
-    pts, clouds = [], []
-    for xyz, valid in _points(depths, intr, cfg):
+    pts, rgbs, clouds = [], [], []
+    for c, (xyz, valid) in enumerate(_points(depths, intr, cfg)):
         pts.append(xyz[valid])
+        if colors is not None:
+            rgbs.append(map_color(xyz, valid, colors[c], color,
+                                  dtype)[valid])
         if cfg["icp_enabled"]:
             clouds.append(icp_cloud(xyz, valid, cfg, dtype))
     ext = ring_icp(clouds, calib, cfg) if cfg["icp_enabled"] and \
         depths.shape[0] > 1 else calib
     use = ext if cloud_ext is None else cloud_ext.to(dtype)
-    return ext, fused_cloud(pts, use, cfg), [int(c[2].sum()) for c in clouds]
+    icp = [int(c[2].sum()) for c in clouds]
+    if colors is None:
+        return ext, fused_cloud(pts, use, cfg), icp, None
+    xyz, rgb = voxel_grid(*fused_points(pts, use, cfg, rgbs),
+                          cfg["out_voxel_leaf"], cfg["out_capacity"], dtype)
+    return ext, xyz, icp, rgb

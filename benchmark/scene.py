@@ -6,8 +6,15 @@ calibration error come from the configuration file (``configs/<name>.json``,
 keys ``rig``, ``scene`` and ``sensor``); the seed draws only what changes
 from run to run without changing the work: the objects' phase on their
 orbits, the depth noise, the dropouts, the axes of each camera's
-calibration error (their sizes are fixed) and the order of the cameras'
-clock phases.
+calibration error (their sizes are fixed), the order of the cameras'
+clock phases and, for a rig with colour, the objects' textures and the
+colour sensor's noise.
+
+A configuration whose ``rig`` holds a ``color`` block also renders colour:
+the same scene ray-cast from each colour sensor's pose (the depth pose
+composed with the block's depth-to-colour extrinsic) at its own
+resolution. Each object has a base colour and a seeded texture that
+varies at a few voxels' scale, and each pixel gets seeded sensor noise.
 
 The renderer is a torch copy of ``render_depth`` (spheres and planes by
 ray casting, float64), extended with oriented boxes and a finite floor
@@ -17,6 +24,7 @@ RealSense's, x right, y down, z forward.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -141,6 +149,16 @@ def render_depth(rig: Rig, pose: torch.Tensor, spheres, boxes,
     surface along each pixel ray of every camera at ``pose`` [C, 4, 4]:
     spheres, oriented boxes (yaw about z) and the floor disc of
     ``floor_radius`` around the origin."""
+    best = _cast(rig, pose, spheres, boxes, floor_radius, device, z_clip)[0]
+    return torch.where(torch.isfinite(best) & (best < z_clip[1]), best, 0.0)
+
+
+def _cast(rig: Rig, pose: torch.Tensor, spheres, boxes, floor_radius: float,
+          device, z_clip, hits: bool = False):
+    """The ray cast of ``render_depth``: (z [C, h, w] float64 of the
+    nearest surface above ``z_clip[0]``, inf where none), and with ``hits``
+    also the object each ray hits (spheres, then boxes, then the floor;
+    -1 for none), each ray's direction (z_cam = 1) and origin."""
     h, w = rig.height, rig.width
     T = pose.to(device=device, dtype=torch.float64)
     u = torch.arange(w, dtype=torch.float64, device=device)
@@ -153,10 +171,17 @@ def render_depth(rig: Rig, pose: torch.Tensor, spheres, boxes,
     o = T[:, None, None, :3, 3]
     best = torch.full(d.shape[:3], math.inf, dtype=torch.float64,
                       device=device)
+    obj = torch.full(d.shape[:3], -1, dtype=torch.int64,
+                     device=device) if hits else None
+    count = 0
 
     def keep(z):
-        nonlocal best
-        best = torch.minimum(best, torch.where(z > z_clip[0], z, math.inf))
+        nonlocal best, obj, count
+        z = torch.where(z > z_clip[0], z, math.inf)
+        if hits:
+            obj = torch.where(z < best, count, obj)
+        count += 1
+        best = torch.minimum(best, z)
 
     for c, r in spheres:
         c = torch.tensor(c, dtype=torch.float64, device=device)
@@ -186,7 +211,7 @@ def render_depth(rig: Rig, pose: torch.Tensor, spheres, boxes,
     z = -o[..., 2] / safe
     hit = o[..., :2] + z[..., None] * d[..., :2]
     keep(torch.where((hit * hit).sum(-1) <= floor_radius ** 2, z, math.inf))
-    return torch.where(torch.isfinite(best) & (best < z_clip[1]), best, 0.0)
+    return best, obj, d, o
 
 
 def render_cycle(cfg: dict, rig: Rig, seed: int, device) -> torch.Tensor:
@@ -214,6 +239,119 @@ def render_cycle(cfg: dict, rig: Rig, seed: int, device) -> torch.Tensor:
         q = torch.clamp(torch.round(zn / scale), 0, 65535)
         q = torch.where((z > 0) & ~drop, q, 0.0)
         out[t] = q.to(torch.int32).to(torch.uint16)
+    return out
+
+
+# a colour rig's base colour of each object, in the order ``_cast`` numbers
+# them (spheres, boxes, the floor), cycled; the colour where a ray hits
+# nothing; and the plane waves a texture sums
+PALETTE = ((200, 70, 40), (40, 140, 210), (225, 200, 60), (80, 180, 90),
+           (170, 80, 200), (150, 135, 115))
+BACKGROUND = (30, 30, 30)
+WAVES = 3
+
+
+def has_color(cfg: dict) -> bool:
+    """Whether the configuration's rig streams colour (a ``color`` block)."""
+    return "color" in cfg["rig"]
+
+
+def depth_to_color(cfg: dict) -> torch.Tensor:
+    """The colour block's depth-to-colour extrinsic [4, 4] float64: a point
+    of the depth camera's frame into the colour camera's, turned by the
+    rotation vector ``rot_deg`` (degrees) and moved by ``t_m`` (metres)."""
+    blk = cfg["rig"]["color"]
+    w = torch.tensor(blk["rot_deg"], dtype=torch.float64) * (math.pi / 180)
+    E = torch.eye(4, dtype=torch.float64)
+    if float(w.norm()) > 0.0:
+        E[:3, :3] = _rotation(w, float(w.norm()))
+    E[:3, 3] = torch.tensor(blk["t_m"], dtype=torch.float64)
+    return E
+
+
+def color_aligned(cfg: dict) -> bool:
+    """Whether the colour is depth-aligned (wire ``DEPTH16_COLOR``): the
+    block at the depth's resolution with an identity extrinsic, which must
+    then have the depth camera's intrinsics. Any other block is a colour
+    stream at its own resolution (``DEPTH16_COLOR_NATIVE``) that the
+    stitcher texture-maps."""
+    rig, blk = cfg["rig"], cfg["rig"]["color"]
+    aligned = (blk["width"], blk["height"]) == (rig["width"],
+                                                rig["height"]) \
+        and not any(blk["t_m"]) and not any(blk["rot_deg"])
+    if aligned and (blk["fx"], blk["fy"], blk["ppx"], blk["ppy"]) != (
+            rig["fx"], rig["fy"], rig["width"] / 2.0, rig["height"] / 2.0):
+        raise ValueError("depth-aligned colour has the depth intrinsics")
+    return aligned
+
+
+def color_rig(cfg: dict, rig: Rig) -> Rig:
+    """The colour sensors as a rig: the block's intrinsics, each true pose
+    the depth camera's composed with the inverse of the extrinsic (colour
+    camera to world)."""
+    blk = cfg["rig"]["color"]
+    pose = rig.true_pose @ torch.linalg.inv(depth_to_color(cfg))
+    return dataclasses.replace(rig, true_pose=pose, fx=blk["fx"],
+                               fy=blk["fy"], ppx=blk["ppx"], ppy=blk["ppy"],
+                               width=blk["width"], height=blk["height"])
+
+
+def textures(cfg: dict, seed: int):
+    """Each object's texture (the floor last), drawn from the seed:
+    ``WAVES`` plane waves of uniform random direction, a wavelength
+    uniform in the block's ``texture_wavelength_m`` and a phase for each
+    colour channel. Returns (wave vectors [n, WAVES, 3] in radians a
+    metre, phases [n, WAVES, 3]), float64."""
+    sc, blk = cfg["scene"], cfg["rig"]["color"]
+    n = len(sc["spheres"]) + len(sc["boxes"]) + 1
+    g = torch.Generator().manual_seed(_mix(seed, 5))
+    dirs = torch.randn((n, WAVES, 3), generator=g, dtype=torch.float64)
+    lo, hi = blk["texture_wavelength_m"]
+    lam = lo + (hi - lo) * torch.rand((n, WAVES, 1), generator=g,
+                                      dtype=torch.float64)
+    phase = torch.rand((n, WAVES, 3), generator=g,
+                       dtype=torch.float64) * (2.0 * math.pi)
+    return dirs / dirs.norm(dim=-1, keepdim=True) * (2.0 * math.pi / lam), \
+        phase
+
+
+def render_color(cfg: dict, rig: Rig, seed: int, device) -> torch.Tensor:
+    """The cycle's colour frames [K, C, hc, wc, 3] uint8 on ``device``:
+    the scene of ``render_cycle``'s frame t seen by each colour sensor
+    (``color_rig``). A hit on object j reads its base colour plus
+    ``texture_amp`` times the mean of its waves at the hit point in the
+    object's own frame (the world's for the floor), a miss the
+    background; every pixel adds Gaussian noise of ``noise_sigma`` levels
+    from one device generator seeded from ``seed``, and rounds to 8 bits."""
+    sc, blk = cfg["scene"], cfg["rig"]["color"]
+    crig = color_rig(cfg, rig)
+    phases = object_phases(cfg, seed)
+    waves, wphase = (t.to(device) for t in textures(cfg, seed))
+    f64 = dict(dtype=torch.float64, device=device)
+    base = torch.tensor([PALETTE[j % len(PALETTE)]
+                         for j in range(len(waves))], **f64)
+    g = torch.Generator(device=device).manual_seed(_mix(seed, 6))
+    out = torch.empty((sc["cycle_frames"], len(rig.true_pose), crig.height,
+                       crig.width, 3), dtype=torch.uint8, device=device)
+    for t in range(sc["cycle_frames"]):
+        spheres, boxes = _objects_at(cfg, phases, t)
+        z, obj, d, o = _cast(crig, crig.true_pose, spheres, boxes,
+                             sc["floor_radius_m"], device, (0.05, 50.0),
+                             hits=True)
+        x = o + torch.where(torch.isfinite(z), z, 0.0)[..., None] * d
+        centres = [c for c, _ in spheres] + [c for c, _, _ in boxes] \
+            + [(0.0, 0.0, 0.0)]
+        rgb = torch.tensor(BACKGROUND, **f64).expand(*z.shape, 3)
+        for j, c in enumerate(centres):
+            arg = torch.einsum("chwi,mi->chwm", x - torch.tensor(c, **f64),
+                               waves[j])
+            tex = torch.sin(arg[..., None] + wphase[j]).mean(-2)
+            rgb = torch.where((obj == j)[..., None],
+                              base[j] + blk["texture_amp"] * tex, rgb)
+        noise = torch.randn(rgb.shape, generator=g, device=device,
+                            dtype=torch.float32).to(torch.float64)
+        out[t] = torch.clamp(torch.round(rgb + blk["noise_sigma"] * noise),
+                             0, 255).to(torch.uint8)
     return out
 
 

@@ -18,6 +18,13 @@ extrinsics and camera mask. After the window it reads which captured
 frame of each camera the output holds from the tags and the generator's
 reports of what it sent, and so its capture time.
 
+A rig with colour serves it in the port's wire kinds, after the depth in
+each frame's payload: ``DEPTH16_COLOR`` for depth-aligned colour,
+``DEPTH16_COLOR_NATIVE`` (the colour's rows and columns inline) for a
+colour stream of its own. Camera c's frame v carries cycle frame v mod K's
+colour, so the depth tag names both images, and each kept frame keeps its
+voxels' mean colours beside its centroids.
+
 A delivered frame is wrong when a camera's tag names no frame that camera
 sent, or its output is empty or not finite; it failed when it is wrong or
 lacked a camera while the camera process was alive. ``stream_fps`` is the
@@ -32,6 +39,8 @@ from __future__ import annotations
 import json
 import math
 import random
+import resource
+import struct
 import subprocess
 import sys
 import threading
@@ -45,36 +54,57 @@ from . import scene, trace
 from .harness import BENCH
 
 KIND_DEPTH16 = 0
+KIND_DEPTH16_COLOR = 2
+KIND_DEPTH16_COLOR_NATIVE = 3
 CODEC_SNAPPY = 2
 
 
-def _header(size: int, rows: int, cols: int) -> bytes:
-    """The wire header of a DEPTH16 snappy frame (seq patched at send)."""
-    import struct
-    return struct.pack("<IBBBBIHH", size, KIND_DEPTH16, CODEC_SNAPPY, 0, 0,
-                       0, rows, cols)
+def _header(size: int, rows: int, cols: int,
+            kind: int = KIND_DEPTH16) -> bytes:
+    """The wire header of a snappy frame of ``kind`` (seq patched at
+    send)."""
+    return struct.pack("<IBBBBIHH", size, kind, CODEC_SNAPPY, 0, 0, 0, rows,
+                       cols)
 
 
-def encode(cycle: np.ndarray, modulus: int) -> list[list[bytes]]:
+def encode(cycle: np.ndarray, modulus: int, colors: np.ndarray | None = None,
+           aligned: bool = True) -> list[list[bytes]]:
     """Every camera's served frames [C][lcm(K, modulus)]: frame v is cycle
-    frame v mod K with the tag of seq v in pixel (0, 0)."""
+    frame v mod K with the tag of seq v in pixel (0, 0), and with
+    ``colors`` [K, C, hc, wc, 3] its colour after the depth: depth-aligned,
+    or (``aligned`` false) with the colour's rows and columns before it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from pointcloud_stitching_tpu_torch.native import snappy
     k, cams, h, w = cycle.shape
     n = math.lcm(k, modulus)
+    kind = KIND_DEPTH16 if colors is None else (
+        KIND_DEPTH16_COLOR if aligned else KIND_DEPTH16_COLOR_NATIVE)
 
     def one(job):
         c, v = job
         d = cycle[v % k, c].copy()
         d[0, 0] = scene.tag_depth(v, modulus)
-        body = snappy.compress(d.astype("<u2").tobytes())
-        return _header(len(body), h, w) + body
+        raw = d.astype("<u2").tobytes()
+        if colors is not None:
+            rgb = colors[v % k, c]
+            raw += (b"" if aligned else struct.pack("<HH", *rgb.shape[:2])) \
+                + rgb.tobytes()
+        body = snappy.compress(raw)
+        return _header(len(body), h, w, kind) + body
 
     jobs = [(c, v) for c in range(cams) for v in range(n)]
     with ThreadPoolExecutor(8) as pool:
         blobs = list(pool.map(one, jobs))
     return [blobs[c * n:(c + 1) * n] for c in range(cams)]
+
+
+def _ratio(images: np.ndarray) -> float:
+    """Raw over snappy-compressed bytes of ``images`` [C, ...], each
+    compressed alone."""
+    from pointcloud_stitching_tpu_torch.native import snappy
+    return images.nbytes / sum(len(snappy.compress(i.tobytes()))
+                               for i in images)
 
 
 class Stages:
@@ -159,9 +189,18 @@ def run(ctx) -> dict:
     rig = scene.make_rig(cfg, ctx.seed)
     cycle = scene.render_cycle(cfg, rig, ctx.seed, dev).cpu().numpy()
     k, cams = cycle.shape[:2]
+    ccycle = (scene.render_color(cfg, rig, ctx.seed, dev).cpu().numpy()
+              if scene.has_color(cfg) else None)
     render_s = time.perf_counter() - t
-    gen = Generator(encode(cycle, modulus), mix["camera_fps"],
+    blobs = encode(cycle, modulus, ccycle,
+                   ccycle is None or scene.color_aligned(cfg))
+    # the served frames before and after snappy
+    served = {"served_mb": sum(len(x) for b in blobs for x in b) / 1e6,
+              "raw_mb": len(blobs[0]) * (cycle[0].nbytes + (
+                  0 if ccycle is None else ccycle[0].nbytes)) / 1e6}
+    gen = Generator(blobs, mix["camera_fps"],
                     scene.clock_phases(cams, ctx.seed))
+    del blobs
     encode_s = time.perf_counter() - t - render_s
     client = None
     try:
@@ -215,7 +254,9 @@ def run(ctx) -> dict:
             if n in sampled:
                 st["kept"][n] = (out.extrinsics.clone(),
                                  out.cloud.xyz.clone(),
-                                 out.cloud.mask.clone())
+                                 out.cloud.mask.clone(),
+                                 None if ccycle is None
+                                 else out.cloud.rgb.clone())
             if ctx.trace and st["prof"] is None and now >= t_trace:
                 st["prof"] = trace.profiler(dev)
                 st["prof"].__enter__()
@@ -260,7 +301,7 @@ def run(ctx) -> dict:
         if not any(x is None for x in caps):
             timed.append((d, d - max(t for _, t in caps)))
     samples = []
-    for i, (e, xyz, m) in sorted(st["kept"].items()):
+    for i, (e, xyz, m, rgb) in sorted(st["kept"].items()):
         if i >= n or any(x is None for x in seqs[i]) \
                 or not bool(masks[i].all()):
             continue
@@ -272,6 +313,10 @@ def run(ctx) -> dict:
                         "depths": torch.from_numpy(d.astype(np.int32)
                                                    ).to(torch.uint16),
                         "calib": rig.calib})
+        if rgb is not None:
+            samples[-1]["rgb"] = rgb[m].cpu()
+            samples[-1]["colors"] = torch.from_numpy(np.stack(
+                [ccycle[s % k, c] for c, (s, _) in enumerate(seqs[i])]))
     lat = [s for _, s in timed]
     lo, hi = st["span_t"]
     outside = {name: [s for t, s in v if not lo <= t <= hi]
@@ -296,7 +341,11 @@ def run(ctx) -> dict:
         if lat else None,
         "stale_camera_frames": stale,
         "run_s": run_s, **host, "render_s": render_s,
-        "encode_s": encode_s, "warm_s": warm_s}
+        "encode_s": encode_s, "warm_s": warm_s, **served,
+        "snappy_ratio": served["raw_mb"] / served["served_mb"],
+        "color_snappy_ratio": None if ccycle is None else _ratio(ccycle[0]),
+        "host_peak_rss_gb": resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2 ** 20}
     del client, pipe, tags, masks, exts, st
     if dev.type == "cuda":
         torch.cuda.empty_cache()

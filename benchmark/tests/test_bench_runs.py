@@ -17,8 +17,7 @@ from benchmark.tests.planted import FAULTS, plant, shrink
 SPEC = harness.benchmark_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
 MIX_OF = {w["name"]: w["traffic"] for w in SPEC["workloads"]}
-SMALL = {name: shrink(harness.config(name))
-         for name in ("rig8_ring_icp", "rig8_fixed_cal")}
+SMALL = {c["name"]: shrink(harness.config(c["name"])) for c in SPEC["configs"]}
 
 
 def _small(mix: dict) -> dict:
@@ -35,8 +34,8 @@ SECONDS = {"closed": 0.1, "stream": 2.0}
 # (seconds, overrides) by cell: the ICP stitch takes about a second a
 # frame on the CPU, so its stream runs longer, draws from fewer frames and
 # waits longer before it calls a camera stale
-SIZE = {"rig8_ring_icp.stream15": (8.0, {"sample_range": 3,
-                                         "stale_timeout_s": 5.0})}
+SIZE = {cell: (8.0, {"sample_range": 3, "stale_timeout_s": 5.0})
+        for cell in ("rig8_ring_icp.stream15", "rig4_ring_icp.stream30")}
 
 
 def _run(monkeypatch, cell, fault=None, trace_on=False, seed=2 ** 32 + 17,
@@ -73,9 +72,13 @@ def test_a_traced_run_reports_its_per_layer_metrics(monkeypatch):
     line, _ = _run(monkeypatch, "rig8_fixed_cal.stream30", trace_on=True,
                    seconds=4.0, trace_frames=3)
     assert line["correct"]
+    # all the cell's per-layer metrics but the device's idle share, which
+    # a CPU trace has no device operation to read
     assert set(line["metrics"]) == {"client.dispatch_ms",
                                     "client.snapshot_ms",
-                                    "client.latency_p95_ms"}
+                                    "client.latency_p95_ms",
+                                    "client.held_ms",
+                                    "client.frame_age_ms"}
     assert line["metrics"]["client.latency_p95_ms"]["value"] > 0
     assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
 
