@@ -17,7 +17,7 @@ the stitch CLI's publisher, viewer and trace) and the sharded port
 (the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
 package's positional order) and the random draws (``utils/prng.py``, JAX's
 threefry2x32 key stream) and the benchmark (``bench_torch.py``), and
-checks the seven hand-written CUDA kernels on those paths:
+checks the eight hand-written CUDA kernels on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -34,7 +34,12 @@ checks the seven hand-written CUDA kernels on those paths:
      bit at the ring shape (a tie across two reference slices goes to the
      lower index; S and the grid printed), there at every split count S
      of 1..8 (the sweep behind ``nn_splits``), and at the registration
-     coarse pass;
+     coarse pass; the colour map (``map_color_kernel``) against
+     ``map_color``'s torch composition on the flagship depth and eight
+     1280x720 frames at the XYZRGB rig's colour sensor and extrinsic
+     (each camera its own), pinhole and with mixed Brown-Conrady models:
+     at least 99.99% of points equal, every other within 1e-3 px of a
+     half pixel, one launch a frame set;
   4. the slice: 10 frames in 'track' mode with kernel_impl='auto' and with
      'torch', at the saturated 1 cm leaf and at an unsaturated 6 cm leaf;
      outputs must agree and the kernels' launch counts must show that the
@@ -42,7 +47,8 @@ checks the seven hand-written CUDA kernels on those paths:
      the flagship config); then the coloured step (uint8 colour from seed
      1, 10 channels through K1): 'auto' = 'torch' bit for bit, the same
      launches, and mapped colour with the depth intrinsics and identity
-     depth->colour extrinsics equal to depth-aligned colour;
+     depth->colour extrinsics equal to depth-aligned colour (one
+     ``map_color_kernel`` launch a frame);
   5. an independent check of the no-ICP step against the numpy oracle in
      tests/oracle.py;
   6. steady-state ms/frame and points/s, host syncs per frame, peak memory;
@@ -322,6 +328,112 @@ def kernel_inputs(dev):
         k3=(q, r, rmask, prepare_ref_batched(r, rmask)), rng=rng)
 
 
+# the agreement rule of map_color_kernel and the torch composition
+# (tests/test_torch_color_config.py): the composition's transform is a
+# cuBLAS matmul whose summation order is not the kernel's, so a point may
+# take the neighbouring pixel where its u or v lies on a half pixel, and
+# nowhere else
+MAP_AGREE_SHARE = 0.9999
+MAP_HALF_PX = 1e-3
+MAP_COEFFS = (0.12, -0.25, 1e-3, -5e-4, 0.1)   # a lens's size
+
+
+def map_color_step(dev, kb, report, depths, intr) -> None:
+    """Phase 3's colour map: ``map_color_kernel`` against ``map_color``'s
+    torch composition on the flagship depth (8 x 407,040 points) and 8
+    seeded 1280x720 uint8 frames, at the benchmark's ``rig8_ring_icp_color``
+    colour sensor and depth-to-colour extrinsic, each camera moved off it
+    by its index; pinhole as the benchmark's configuration has it, then
+    mixed Brown-Conrady and inverse Brown-Conrady as a D435's colour stream
+    reports. One launch per frame set; timed pinhole."""
+    import torch
+    from benchmark import harness
+    from benchmark.color_roofline import MASK_BYTES, OPS_PER_POINT, \
+        RGB_BYTES, XYZ_BYTES
+    from pointcloud_stitching_tpu_torch import Intrinsics
+    from pointcloud_stitching_tpu_torch.ops import deproject, se3_apply
+    from pointcloud_stitching_tpu_torch.ops.deproject import map_color, \
+        project
+    from pointcloud_stitching_tpu_torch.utils.types import DistortionModel
+
+    col = harness.color_of(harness.config("rig8_ring_icp_color"))
+    hc, wc = col["height"], col["width"]
+    pc = deproject(depths, intr, depth_scale=0.001, z_min=0.1, z_max=10.0)
+    color = torch.from_numpy(np.random.default_rng(3).integers(
+        1, 256, (NCAM, hc, wc, 3), dtype=np.uint8)).to(dev)
+    exts = []
+    for c in range(NCAM):
+        a = np.radians(0.3 * c)
+        turn = np.array([[np.cos(a), 0, np.sin(a), 0.002 * c],
+                         [0, 1, 0, -0.001 * c],
+                         [-np.sin(a), 0, np.cos(a), 0], [0, 0, 0, 1]])
+        exts.append(turn @ col["ext"].cpu().numpy())
+    ext = torch.from_numpy(np.stack(exts).astype(np.float32)).to(dev)
+
+    def colour_intr(models):
+        cams = [Intrinsics.create(
+            col["fx"] * (1 + 0.01 * c), col["fy"] * (1 - 0.007 * c),
+            col["ppx"] + 3.0 * c, col["ppy"] - 2.0 * c,
+            coeffs=[k * (1 + 0.05 * c) for k in MAP_COEFFS], width=wc,
+            height=hc, model=models[c % len(models)], device=dev)
+            for c in range(NCAM)]
+        return cams[0].stack(cams[1:])
+
+    valid = int(pc.mask.sum())
+    lines = []
+    for tag, models in (
+            ("pinhole", [DistortionModel.NONE]),
+            ("mixed", [DistortionModel.NONE, DistortionModel.BROWN_CONRADY,
+                       DistortionModel.INVERSE_BROWN_CONRADY])):
+        ci = colour_intr(models)
+        kb.reset_launches()
+        got = map_color(pc, color, ci, ext, impl="cuda").rgb
+        again = map_color(pc, color, ci, ext, impl="cuda").rgb
+        check(dict(kb.LAUNCHES) == {"map_color": 2},
+              f"map_color {tag}: launches {dict(kb.LAUNCHES)}, want 1 a call")
+        want = map_color(pc, color, ci, ext, impl="torch").rgb
+        torch.cuda.synchronize()
+        check(dict(kb.LAUNCHES) == {"map_color": 2},
+              f"map_color {tag}: the 'torch' call launched a kernel")
+        check(torch.equal(got, again), f"map_color {tag}: two launches differ")
+        bad = (got != want).any(-1)
+        differ = int(bad.sum())
+        check(differ <= (1 - MAP_AGREE_SHARE) * bad.numel(),
+              f"map_color {tag}: {differ} of {bad.numel()} points differ")
+        near = 0.0
+        if differ:
+            uv, _ = project(se3_apply(ext, pc.xyz), ci)
+            uv = uv[bad].double()
+            near = float((uv - uv.floor() - 0.5).abs().min(-1).values.max())
+            check(near < MAP_HALF_PX, f"map_color {tag}: a point {near} px "
+                  "off a half pixel takes another colour")
+        # the colour sensor's field of view is narrower than the depth's
+        mapped = int((got > 0).any(-1).sum())
+        check(mapped > valid // 4, f"map_color {tag}: only {mapped} of "
+              f"{valid} valid points coloured")
+        lines.append(f"{tag}: {differ} of {bad.numel()} points differ (the "
+                     f"farthest {near:.3g} px off a half pixel), {mapped} of "
+                     f"{valid} valid points coloured")
+        if tag == "pinhole":
+            times = time_in_turns(
+                lambda: map_color(pc, color, ci, ext, impl="cuda"),
+                lambda: map_color(pc, color, ci, ext, impl="torch"))
+            err = (got - want).abs().max().item()
+    say(f"    map_color {tuple(pc.xyz.shape)} into {NCAM} x {hc}x{wc} "
+        f"frames, one launch a frame set, two launches bitwise equal; "
+        + "; ".join(lines))
+    # the benchmark's yardstick (benchmark/color_roofline.py): every
+    # point's mask read and rgb written, each valid point's xyz read and
+    # its transform and projection; the library time is the composition's
+    # chain of PyTorch calls, as no one call maps colour
+    points = pc.mask.numel()
+    report("map_color", "pointcloud_stitching_tpu_torch/csrc/map_color.cu",
+           "pointcloud_stitching_tpu/ops/deproject.py:168 (plain jnp)", err,
+           times, points * (MASK_BYTES + RGB_BYTES) + valid * XYZ_BYTES,
+           valid * OPS_PER_POINT, library_ms=times[1])
+    del pc, color, got, again, want, bad
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -494,6 +606,9 @@ def main() -> int:
            nbytes(flags_c, gc) + rows_c * ch_c * vals_c.element_size(),
            rows_c * ch_c)
     del vals_c, flags_c, gc, gc_again, wc
+
+    # the colour map at the XYZRGB rig's shapes (its own kernels entry)
+    map_color_step(dev, kb, report, depths, intr)
 
     # K2 at the ring-ICP shape and at the per-camera 1 cm pass
     check(lib.pcs_nn_query_tile() == NN_QUERY_TILE,
@@ -716,8 +831,15 @@ def main() -> int:
                         color_width=W)
     aligned = StitchingPipeline(acfg, intr, ext_np, device=dev)(depths,
                                                                 colors)
-    mapped = StitchingPipeline(mcfg, intr, ext_np, device=dev,
-                               color_intr=intr)(depths, colors)
+    mpipe = StitchingPipeline(mcfg, intr, ext_np, device=dev,
+                              color_intr=intr)
+    kb.reset_launches()
+    mapped = mpipe(depths, colors)
+    torch.cuda.synchronize()
+    check(kb.LAUNCHES.get("map_color", 0) == 1,
+          f"mapped colour: map_color launched {kb.LAUNCHES.get('map_color')}"
+          " times in one frame, want 1")
+    kernels["map_color"]["launches"] = kb.LAUNCHES["map_color"]
     for name in ("xyz", "mask", "rgb"):
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
@@ -727,7 +849,7 @@ def main() -> int:
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
         f"== aligned colour bit for bit")
-    del ca, aligned, mapped, rgb_c, colors
+    del ca, aligned, mapped, mpipe, rgb_c, colors
 
     # --- phase 5: independent check against the numpy oracle ------------
     # a grid of 2^21 slots holds every occupied 6 cm voxel of the scene, so

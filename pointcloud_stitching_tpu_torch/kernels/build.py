@@ -29,7 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("segment_reduce.cu", "nn.cu", "patch_gather.cu", "prng.cu")
+SOURCES = ("segment_reduce.cu", "nn.cu", "patch_gather.cu", "prng.cu",
+           "map_color.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpcs_kernels.so"
@@ -135,6 +136,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # img, h, w, v0, u0, iv, iu, nb, out, stream
     "pcs_patch_gather": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    # xyz, mask(u8), color(u8), ext, fx, fy, ppx, ppy, coeffs,
+    # model_ids(i32, or null), model, ncam, n, hc, wc, rgb, stream
+    "pcs_map_color": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L,
+                      _I, _I, _P, _P),
     # vals, flags(u8), n, ch, capacity, out, epoch, hint(u64), status(i32),
     # cstat(u64), xbuf(f64), abuf(f64), stream
     "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P),

@@ -13,7 +13,8 @@ on the device, eagerly (the JAX package jits the whole step); the stateful
 as one CUDA graph where it can. Colour rides
 the cloud's rgb channel: depth-aligned (``deproject_with_color``) or
 texture-mapped from a colour stream with its own calibration
-(``map_color``); the coloured global pass sums 10 channels through K1.
+(``map_color``, one kernel launch on the card); the coloured global pass
+sums 10 channels through K1.
 """
 from __future__ import annotations
 
@@ -356,7 +357,9 @@ def _prepare(cfg: StitchConfig, intr: Intrinsics, depths: torch.Tensor,
         # depth decimation needs no colour-side counterpart
         if color_ext is None:
             color_ext = se3_identity(device=depths.device)
-        raw = map_color(raw, colors, color_intr, color_ext)
+        with annotate("pcs.prepare.color"):
+            raw = map_color(raw, colors, color_intr, color_ext,
+                            impl=cfg.kernel_impl)
     if cam_mask is not None:
         raw = raw.replace(mask=raw.mask & cam_mask[:, None])
 

@@ -23,12 +23,15 @@ depth-aligned colour (a per-pixel lookup) and ``map_color`` /
 intrinsics and a depth→colour extrinsic (librealsense's ``map_to``: project
 each point into the colour camera, round to the nearest pixel with
 ``torch.round``, which rounds half to even as ``jnp.round`` does, and
-gather).
+gather). On a CUDA cloud ``map_color`` is one kernel launch
+(``kernels/map_color.py``) for every camera.
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.build import use_kernel
+from ..kernels.map_color import map_color_cuda
 from ..utils.types import DistortionModel, Intrinsics, PointCloud
 from .se3 import se3_apply
 
@@ -161,7 +164,7 @@ def project(xyz: torch.Tensor, intr: Intrinsics):
 
 
 def map_color(pc: PointCloud, color: torch.Tensor, color_intr: Intrinsics,
-              depth_to_color: torch.Tensor) -> PointCloud:
+              depth_to_color: torch.Tensor, impl: str = "auto") -> PointCloud:
     """Attach colour by texture-coordinate mapping with separate colour
     calibration (``rs2::pointcloud::map_to``).
 
@@ -175,7 +178,13 @@ def map_color(pc: PointCloud, color: torch.Tensor, color_intr: Intrinsics,
       color: [..., Hc, Wc, 3] uint8 colour image (its own resolution).
       color_intr: the colour stream's Intrinsics (batched like pc).
       depth_to_color: [..., 4, 4] depth→colour extrinsic transform.
+      impl: 'auto' maps a CUDA cloud with the ``map_color_kernel`` (one
+        launch for every camera, every distortion model) and a CPU cloud
+        with the torch composition below; 'cuda' and 'torch' force one.
     """
+    if use_kernel(impl, pc.xyz):
+        return pc.replace(rgb=map_color_cuda(pc.xyz, pc.mask, color,
+                                             color_intr, depth_to_color))
     hc, wc = color.shape[-3], color.shape[-2]
     xyz_c = se3_apply(depth_to_color.to(torch.float32), pc.xyz)
     uv, in_front = project(xyz_c, color_intr)

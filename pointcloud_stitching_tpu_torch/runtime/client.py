@@ -6,8 +6,11 @@ single-writer slots read by a snapshot, dead cameras dropped through
 ``cam_mask``, the software-pipelined ``run()`` (``overlap``,
 ``sync_every``, ``fps``, ``dead_timeout``), the on-demand pulls and the
 stage table (``snapshot``, ``h2d``, ``dispatch``, ``sync_wait``; the port
-adds ``held``, a frame's wait between its dispatch and its sync, and
-``frame_age``, the snapshot's age of its oldest live camera frame).
+adds ``held``, a frame's wait between its dispatch and its sync,
+``frame_age``, the snapshot's age of its oldest live camera frame, and
+from the ingest threads, for every camera frame, ``recv``, its pull sent
+to its bytes received, and ``decode``, its bytes received to its slot
+written: decompression, parse and the copy under the slot's lock).
 
 The host→device feed on a CUDA pipeline: each snapshot is written into a
 slot of a ring of **pinned** host buffers and copied with
@@ -36,7 +39,7 @@ import torch
 from ..models.stitcher import StitchingPipeline, StitchOutput
 from ..utils.metrics import FrameMetrics, StageTimer
 from ..utils.profiling import annotate
-from .wire import Kind, recv_frame, send_pull
+from .wire import Kind, decode_frame, recv_frame_bytes, send_pull
 
 
 class _CameraSlot:
@@ -78,7 +81,10 @@ class CameraIngest(threading.Thread):
                  record_frames: int = 0, reconnect: bool = True,
                  reconnect_backoff: float = 0.5,
                  pull_mode: str = "on_demand",
-                 trickle: float = 0.25):
+                 trickle: float = 0.25,
+                 record: Optional[Callable[[str, float], None]] = None):
+        """``record(stage, seconds)``, where given, takes the ``recv`` and
+        ``decode`` samples of every frame."""
         super().__init__(daemon=True, name=f"ingest-cam{index}")
         self.index = index
         self.address = address
@@ -89,6 +95,7 @@ class CameraIngest(threading.Thread):
         self._backoff = reconnect_backoff
         self._on_demand = pull_mode == "on_demand"
         self._trickle = trickle
+        self._record = record
         # keep the first K received depth (+colour) frames for .npy export
         # via MulticameraClient.save_recording
         self.record_frames = record_frames
@@ -132,7 +139,10 @@ class CameraIngest(threading.Thread):
                     self.slot.consumed.wait(timeout=self._trickle)
                     self.slot.consumed.clear()
                 send_pull(sock)
-                kind, seq, payload = recv_frame(sock)
+                t_pull = time.perf_counter()
+                header, body = recv_frame_bytes(sock)
+                t_recv = time.perf_counter()
+                kind, seq, payload = decode_frame(header, body)
                 if self.slot.points:
                     if kind != Kind.POINTS_I16MM:
                         raise ValueError(f"expected point frames, got {kind}")
@@ -145,6 +155,7 @@ class CameraIngest(threading.Thread):
                         self.slot.count = n
                         self.slot.seq = seq
                         self.slot.stamp = time.time()
+                    self._record_stages(t_pull, t_recv)
                     continue
                 rgb = None
                 if kind in (Kind.DEPTH16_COLOR, Kind.DEPTH16_COLOR_NATIVE):
@@ -173,6 +184,7 @@ class CameraIngest(threading.Thread):
                         self.slot.rgb[...] = rgb
                     self.slot.seq = seq
                     self.slot.stamp = time.time()
+                self._record_stages(t_pull, t_recv)
         except Exception as e:  # noqa: BLE001 — deliberate breadth:
             # decoding raises more than (OSError, ValueError): zlib.error on
             # a corrupt stream, struct.error on a short colour payload,
@@ -188,6 +200,11 @@ class CameraIngest(threading.Thread):
                 sock.close()
             except OSError:
                 pass
+
+    def _record_stages(self, t_pull: float, t_recv: float) -> None:
+        if self._record is not None:
+            self._record("recv", t_recv - t_pull)
+            self._record("decode", time.perf_counter() - t_recv)
 
 
 class _Stage:
@@ -250,7 +267,10 @@ class MulticameraClient:
                          pull_mode=pull_mode,
                          # keep the stall-trickle period well under the
                          # staleness test or a healthy camera flaps stale
-                         trickle=min(0.25, stale_timeout / 4.0))
+                         trickle=min(0.25, stale_timeout / 4.0),
+                         # reads self.stages at every call: a caller may
+                         # put its own timer there while the threads run
+                         record=lambda k, t: self.stages.record(k, t))
             for i, (addr, slot) in enumerate(zip(addresses, self._slots))]
         self._stage_ring: list[_Stage] = []
         self._stage_i = 0

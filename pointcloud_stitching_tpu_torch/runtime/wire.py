@@ -237,7 +237,8 @@ def recv_exact(sock: socket.socket, n: int) -> bytes:
 MAX_FRAME_BYTES = 64 * 2 ** 20  # sanity bound; a D435 frame is < 1 MB
 
 
-def recv_frame(sock: socket.socket):
+def recv_frame_bytes(sock: socket.socket) -> tuple[bytes, bytes]:
+    """One frame's header and body as they came off the wire."""
     header = recv_exact(sock, HEADER_SIZE)
     size = struct.unpack_from("<I", header)[0]
     if size > MAX_FRAME_BYTES:
@@ -245,8 +246,11 @@ def recv_frame(sock: socket.socket):
         # of blocking on a gigabyte recv
         raise ValueError(f"frame size {size} exceeds {MAX_FRAME_BYTES} "
                          "(corrupt stream?)")
-    body = recv_exact(sock, size)
-    return decode_frame(header, body)
+    return header, recv_exact(sock, size)
+
+
+def recv_frame(sock: socket.socket):
+    return decode_frame(*recv_frame_bytes(sock))
 
 
 def send_pull(sock: socket.socket) -> None:
