@@ -3,14 +3,22 @@
 Port of ``pointcloud_stitching_tpu/runtime/client.py``. Kept: the pull-based
 protocol, one ingest thread per camera, freshest-frame semantics,
 single-writer slots read by a snapshot, dead cameras dropped through
-``cam_mask``, the software-pipelined ``run()`` (``overlap``,
-``sync_every``, ``fps``, ``dead_timeout``), the on-demand pulls and the
-stage table (``snapshot``, ``h2d``, ``dispatch``, ``sync_wait``; the port
-adds ``held``, a frame's wait between its dispatch and its sync,
-``frame_age``, the snapshot's age of its oldest live camera frame, and
-from the ingest threads, for every camera frame, ``recv``, its pull sent
-to its bytes received, and ``decode``, its bytes received to its slot
-written: decompression, parse and the copy under the slot's lock).
+``cam_mask``, the overlapped ``run()`` (``overlap``, ``sync_every``,
+``fps``, ``dead_timeout``), the on-demand pulls and the stage table
+(``snapshot``, ``h2d``, ``dispatch``, ``sync_wait``; the port adds
+``held``, a frame's wait between its dispatch and its sync,
+``drain_early`` and ``drain_piped``, which of ``run()``'s two orders
+delivered a frame, ``frame_age``, the snapshot's age of its oldest live
+camera frame, and from the ingest threads, for every camera frame,
+``recv``, its pull sent to its bytes received, and ``decode``, its bytes
+received to its slot written: decompression, parse and the copy under the
+slot's lock).
+
+The overlapped ``run()`` is software-pipelined one frame deep only while
+it runs late: frame N is synced and delivered after frame N+1's dispatch,
+so N+1's snapshot and copy overlap N's compute. Paced by ``fps`` with the
+next tick still ahead, it syncs and delivers frame N straight after N's
+dispatch instead, as the host would otherwise sleep with a finished frame.
 
 The host→device feed on a CUDA pipeline: each snapshot is written into a
 slot of a ring of **pinned** host buffers and copied with
@@ -410,7 +418,8 @@ class MulticameraClient:
         On CUDA the copies go on the side stream from pinned memory and
         return once enqueued; the current (stitch) stream waits on an event
         recorded after them, so frame N+1's copy overlaps frame N's compute
-        when ``run()`` overlaps. Returns (device tensors by name, npix)."""
+        while ``run()`` runs pipelined. Returns (device tensors by name,
+        npix)."""
         host = stage.host
         if not self._cuda:
             dev = {k: None if v is None else v.clone()
@@ -489,10 +498,16 @@ class MulticameraClient:
             dead_timeout: Optional[float] = 30.0,
             fps: Optional[float] = None) -> FrameMetrics:
         """Streaming loop. With overlap=True (default) the loop is software-
-        pipelined one frame deep: while frame N's work runs on the device,
-        the host snapshots and enqueues frame N+1's copy and step; frame N
-        is synced only after that. on_frame(n, out) sees every completed
-        frame in order.
+        pipelined one frame deep while it runs late: while frame N's work
+        runs on the device, the host snapshots and enqueues frame N+1's copy
+        and step, and frame N is synced only after that. Under ``fps``, a
+        frame dispatched while the next tick is still ahead is synced and
+        delivered at once, before the pace wait, so it is not held through
+        the wait and the next frame's dispatch; unpaced, the loop is always
+        late. Each drained frame records the stage ``drain_early`` (seconds
+        left to the next tick) or ``drain_piped`` (seconds the loop ran past
+        its tick, 0 unpaced). on_frame(n, out) sees every completed frame
+        in order.
 
         sync_every: host-sync (and record a latency sample) only every K-th
         frame; the other frames count for throughput only.
@@ -518,7 +533,31 @@ class MulticameraClient:
         last_alive = time.time()
         tick = (1.0 / fps) if fps else None
         next_t = time.time() if tick is not None else 0.0
-        pending: Optional[tuple[StitchOutput, float, int]] = None
+        # the frame left in flight while the loop runs late: (out, snapshot
+        # start, npix, its dispatch's end, seconds the loop was past its tick)
+        pending: Optional[tuple] = None
+
+        def drain(frame, stage: str) -> bool:
+            """Sync (every sync_every-th and the last frame), record and
+            deliver frame n; True once a bounded run has all its frames."""
+            nonlocal n, last_alive
+            out, t0, npix, t_out, value = frame
+            self.stages.record(stage, value)
+            if n % sync_every == 0 or \
+                    (num_frames is not None and n + 1 >= num_frames):
+                t_wait = self._timed_sync(out, t_out)
+                t3 = time.time()
+                self.stages.record("sync_wait", t3 - t_wait)
+                self.metrics.record(t3 - t0, points=npix)
+            else:
+                self.metrics.record_unsynced(points=npix)
+            if on_frame is not None:
+                with annotate("pcs.client.deliver"):
+                    on_frame(n, out)
+            n += 1
+            last_alive = time.time()
+            return num_frames is not None and n >= num_frames
+
         try:
             while not self._stop.is_set():
                 # never dispatch past num_frames: with one frame in flight
@@ -568,33 +607,20 @@ class MulticameraClient:
                     self.stages.record("snapshot", t1 - t0)
                     self.stages.record("h2d", t2 - t1)
                 # drain frame N while N+1 runs (its copy is already enqueued)
-                if pending is not None:
-                    p_out, p_t0, p_npix, p_out_t = pending
-                    last = num_frames is not None and n + 1 >= num_frames
-                    if n % sync_every == 0 or last:
-                        t_wait = self._timed_sync(p_out, p_out_t)
-                        t3 = time.time()
-                        self.stages.record("sync_wait", t3 - t_wait)
-                        self.metrics.record(t3 - p_t0, points=p_npix)
+                if pending is not None and drain(pending, "drain_piped"):
+                    break
+                pending = None
+                if nxt is not None and not self._stop.is_set():
+                    late = (time.time() - next_t) if tick is not None \
+                        else 0.0
+                    if late < 0:
+                        # ahead of the schedule: the host would only sleep
+                        # until the next tick, so the frame is delivered
+                        # now rather than after the next frame's dispatch
+                        if drain(nxt + (-late,), "drain_early"):
+                            break
                     else:
-                        self.metrics.record_unsynced(points=p_npix)
-                    if on_frame is not None:
-                        with annotate("pcs.client.deliver"):
-                            on_frame(n, p_out)
-                    n += 1
-                    last_alive = time.time()
-                    if num_frames is not None and n >= num_frames:
-                        break
-                pending = nxt
-            if pending is not None and not self._stop.is_set() and \
-                    (num_frames is None or n < num_frames):
-                p_out, p_t0, p_npix, p_out_t = pending
-                t_wait = self._timed_sync(p_out, p_out_t)
-                self.stages.record("sync_wait", time.time() - t_wait)
-                self.metrics.record(time.time() - p_t0, points=p_npix)
-                if on_frame is not None:
-                    with annotate("pcs.client.deliver"):
-                        on_frame(n, p_out)
+                        pending = nxt + (late,)
         except BaseException:
             # an exception escaping the loop (including KeyboardInterrupt)
             # tears the client down: the in-flight frame is unowned

@@ -8,6 +8,7 @@ on the CPU with fake camera servers on localhost; every test has a time
 limit of its own, so a socket that hangs fails the test instead of eating
 the suite's clock.
 """
+import collections
 import functools
 import json
 import os
@@ -429,6 +430,100 @@ def test_run_fps_paces_the_loop(rig):
         dt = time.time() - t0
         assert m.total_frames >= 10
         assert 9 / 50.0 <= dt < 10 * (2 / 50.0) + 1.0, (overlap, dt)
+
+
+def _ordered_client(rig):
+    """A 2-camera client whose snapshots, dispatches, syncs and deliveries
+    (through the returned ``on_frame``) append ("snapshot" | "dispatch" |
+    "sync" | "deliver", frame) to ``events``, the frame counted per kind;
+    returns (client, events, on_frame)."""
+    servers = [rig(synthetic_frames(8, H, W, seed=s)) for s in range(2)]
+    client = rig.client(MulticameraClient(
+        [("127.0.0.1", s.port) for s in servers],
+        _pipeline(2, icp=False)).start())
+    assert client.wait_for_first_frames(timeout=10)
+    client.run(num_frames=2)            # warm
+    client.metrics.reset()
+    client.stages.reset()
+    events = []
+    counts = collections.Counter()
+
+    def log(kind):
+        events.append((kind, counts[kind]))
+        counts[kind] += 1
+
+    def wrap(name):
+        real = getattr(client, name)
+
+        def logged(*args, **kw):
+            log(name.lstrip("_"))
+            return real(*args, **kw)
+        setattr(client, name, logged)
+
+    for name in ("_snapshot", "_dispatch", "_sync"):
+        wrap(name)
+    return client, events, lambda n, out: log("deliver")
+
+
+@time_limit(30)
+@pytest.mark.parametrize("sync_every", [1, 3])
+def test_paced_run_ahead_of_its_ticks_delivers_each_frame_before_the_next(
+        rig, sync_every):
+    """A tick far longer than the loop's work: frame N is synced (where
+    ``sync_every`` says) and delivered before frame N+1's snapshot, and
+    every frame records ``drain_early`` with the seconds left to its tick;
+    unsynced frames are counted and delivered all the same."""
+    client, events, on_frame = _ordered_client(rig)
+    m = client.run(num_frames=4, on_frame=on_frame, sync_every=sync_every,
+                   fps=4.0)
+    synced = [0, 1, 2, 3] if sync_every == 1 else [0, 3]
+    want = []
+    for k in range(4):
+        want += [("snapshot", k), ("dispatch", k)]
+        if k in synced:
+            want.append(("sync", synced.index(k)))
+        want.append(("deliver", k))
+    assert events == want
+    assert m.total_frames == 4 and len(m.latencies) == len(synced)
+    st = client.stages.stages
+    assert len(st["drain_early"]) == 4 and "drain_piped" not in st
+    assert all(0 < v <= 0.25 for v in st["drain_early"])
+    assert len(st["held"]) == len(synced)
+
+
+@time_limit(30)
+def test_unpaced_run_stays_pipelined(rig):
+    """No tick to wait for: frame N+1 is dispatched before frame N is
+    synced and delivered, and every frame records ``drain_piped`` 0."""
+    client, ev, on_frame = _ordered_client(rig)
+    m = client.run(num_frames=4, on_frame=on_frame)
+    assert [e for e in ev if e[0] == "deliver"] == [("deliver", k)
+                                                    for k in range(4)]
+    for k in range(3):
+        assert ev.index(("dispatch", k + 1)) < ev.index(("sync", k)) \
+            < ev.index(("deliver", k))
+    assert m.total_frames == 4
+    assert list(client.stages.stages["drain_piped"]) == [0.0] * 4
+    assert "drain_early" not in client.stages.stages
+
+
+@time_limit(30)
+def test_paced_run_behind_its_ticks_falls_back_to_pipelined(rig):
+    """A tick far shorter than the loop's own time: the loop is late at
+    every frame, so it keeps the pipelined order, records ``drain_piped``
+    with how late it ran, and still delivers every frame in order."""
+    client, ev, on_frame = _ordered_client(rig)
+    m = client.run(num_frames=5, on_frame=on_frame, fps=1e6)
+    assert [e for e in ev if e[0] == "deliver"] == [("deliver", k)
+                                                    for k in range(5)]
+    assert [e for e in ev if e[0] == "dispatch"] == [("dispatch", k)
+                                                     for k in range(5)]
+    for k in range(4):
+        assert ev.index(("dispatch", k + 1)) < ev.index(("sync", k))
+    assert m.total_frames == 5
+    st = client.stages.stages
+    assert len(st["drain_piped"]) == 5 and "drain_early" not in st
+    assert all(v > 0 for v in st["drain_piped"])
 
 
 @time_limit(40)
