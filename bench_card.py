@@ -1,8 +1,7 @@
-"""The card's bounds and timers, and the scenes of the port's benchmark.
+"""The card's bounds and timers, and the flagship and TSDF scenes.
 
-Shared by ``bench_torch.py``, ``scripts/roofline_torch.py`` and
-``chip_smoke.py``; it holds no driver logic. It imports torch, numpy and
-the port, never jax.
+Shared by ``scripts/roofline_torch.py`` and ``chip_smoke.py``; it holds no
+driver logic. It imports torch, numpy and the port, never jax.
 """
 from __future__ import annotations
 
@@ -61,13 +60,6 @@ def flagship_fields(ncam: int, h: int = 480, w: int = 848) -> dict:
                 icp_query_tile=1024, icp_ref_tile=4096)
 
 
-def intrinsics(ncam: int, h: int, w: int, device) -> Intrinsics:
-    """The flagship's intrinsics, one per camera."""
-    i0 = Intrinsics.create(fx=FX, fy=FY, ppx=w / 2.0, ppy=h / 2.0, width=w,
-                           height=h, device=device)
-    return i0.stack([i0] * (ncam - 1))
-
-
 def _flagship(ncam: int, h: int = 480, w: int = 848, device="cpu"):
     """__graft_entry__._flagship's scene in numpy, bit for bit: (cfg,
     intr on ``device``, extrinsics [ncam, 4, 4] float32, depths [ncam, h,
@@ -79,7 +71,9 @@ def _flagship(ncam: int, h: int = 480, w: int = 848, device="cpu"):
     ext[:, :3, 3] = rng.uniform(-0.3, 0.3, (ncam, 3)).astype(np.float32)
     depths = rng.integers(200, 4000, size=(ncam, h, w), dtype=np.uint16)
     depths[rng.random((ncam, h, w)) < 0.07] = 0
-    return cfg, intrinsics(ncam, h, w, device), ext, depths
+    i0 = Intrinsics.create(fx=FX, fy=FY, ppx=w / 2.0, ppy=h / 2.0, width=w,
+                           height=h, device=device)
+    return cfg, i0.stack([i0] * (ncam - 1)), ext, depths
 
 
 def render_depth(fx, fy, ppx, ppy, w, h, T, spheres=(), planes=(),

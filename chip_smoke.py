@@ -16,8 +16,8 @@ the stitch CLI's publisher, viewer and trace) and the sharded port
 (``parallel/``) in worlds of 1 and 4 ranks and the port's own commands
 (the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
 package's positional order) and the random draws (``utils/prng.py``, JAX's
-threefry2x32 key stream) and the benchmark (``bench_torch.py``), and
-checks the eight hand-written CUDA kernels on those paths:
+threefry2x32 key stream), and checks the eight hand-written CUDA kernels
+on those paths:
 
   1. device and settings: the card's name and power limit; full float32
      matmuls (no TF32) once a pipeline exists;
@@ -152,13 +152,7 @@ checks the eight hand-written CUDA kernels on those paths:
      drawing on the card, both kernels timed in turns with their plain
      versions (their launches: phase 12 (b)'s ``--drop-plane`` run, one
      each a frame), and ms and device operations per draw of ``choice`` over
-     262,144 slots, ``normal(39, 4)`` and ``categorical``;
- 16. the port's benchmark: ``python3 bench_torch.py`` as a process (bench.py's
-     rows on the card, the roofline of scripts/roofline_torch.py among
-     them): exit 0, a last line of at most 1800 characters with bench.py's
-     keys, a positive value, every number finite and the pruned integrate
-     equal to the dense one bit for bit; the line and the rows' launches
-     printed.
+     262,144 slots, ``normal(39, 4)`` and ``categorical``.
 
 The kernels' line carries, for each kernel, its time beside its bound: the
 larger of the bytes it must move (each input read once, each output
@@ -456,14 +450,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else \
         f"nvidia-smi failed: {smi.stderr.strip()}"
-    say(f"[1/16 device] {torch.cuda.get_device_name(0)} | {card} | torch "
+    say(f"[1/15 device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.device_count()} device(s)")
 
     t_start = t0 = time.perf_counter()
     info = kb.build()
     kb.library()
-    say(f"[2/16 build] {info.path.name}: nvcc {info.seconds:.2f} s "
+    say(f"[2/15 build] {info.path.name}: nvcc {info.seconds:.2f} s "
         f"({'cached' if info.cached else 'built'}), load "
         f"{time.perf_counter() - t0:.2f} s; ptxas:")
     for line in info.log.splitlines():
@@ -517,7 +511,7 @@ def main() -> int:
                 f"{K2_TILE_ROWS} rows per tile, "
                 f"{lib.pcs_segsum_flags_smem(ch_)} B dynamic smem")
 
-    say(f"[3/16 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
+    say(f"[3/15 kernels] K1 packed {tuple(vals.shape)} cap {cap}: bitwise "
         f"equal ({int((want[:, 6] > 0).sum())} segments), two launches "
         f"bitwise equal; 1 launch of {k1_blocks[0]} tiles + {k1_blocks[1]} "
         f"zero-only blocks x {k1_launch(vals.shape[1])}, no memset")
@@ -787,7 +781,7 @@ def main() -> int:
         else:
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
-        say(f"[4/16 slice] {tag}: {FRAMES} frames track mode, points_in "
+        say(f"[4/15 slice] {tag}: {FRAMES} frames track mode, points_in "
             f"{ma[-1][0]} points_out {pts_out[0]}..{pts_out[-1]} "
             f"(capacity 262144); auto vs torch: metrics equal, |d ext| "
             f"{d_ext:.3g}, |d sorted cloud| {d_cloud:.3g}; launches {la}")
@@ -844,7 +838,7 @@ def main() -> int:
         check(torch.equal(getattr(aligned.cloud, name),
                           getattr(mapped.cloud, name)),
               f"mapped colour differs from aligned colour in {name}")
-    say(f"[4/16 slice] coloured: {FRAMES} frames track mode, points_out "
+    say(f"[4/15 slice] coloured: {FRAMES} frames track mode, points_out "
         f"{n_c}, mean rgb {[round(float(v), 3) for v in rgb_c.mean(0)]}; "
         f"auto vs torch bitwise equal (cloud, rgb, extrinsics); launches "
         f"{la}; mapped colour (identity depth->colour, depth intrinsics) "
@@ -870,7 +864,7 @@ def main() -> int:
           f"oracle: {got.shape[0]} voxels vs {want.shape[0]}")
     d_or = float(np.abs(got - want).max())
     check(d_or <= ATOL_ORACLE, f"oracle: centroids differ by {d_or}")
-    say(f"[5/16 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
+    say(f"[5/15 oracle] icp off, 6 cm leaf: {got.shape[0]} voxels == oracle, "
         f"max |centroid - oracle| {d_or:.3g} m")
 
     # --- phase 6: timings -------------------------------------------------
@@ -904,7 +898,7 @@ def main() -> int:
     frame_ms("auto", frames=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     s_auto, s_plain = syncs_per_frame("auto"), syncs_per_frame("torch")
-    say(f"[6/16 timing] {card}: ms/frame auto {t_auto:.3f} "
+    say(f"[6/15 timing] {card}: ms/frame auto {t_auto:.3f} "
         f"({t_auto1:.3f}, {t_auto2:.3f}) torch {t_plain:.3f} "
         f"({t_plain1:.3f}, {t_plain2:.3f}); points/s auto "
         f"{pix / t_auto * 1e3:.4g} torch {pix / t_plain * 1e3:.4g}; "
@@ -920,7 +914,6 @@ def main() -> int:
     parallel_phase(dev, card, t_auto)
     commands_phase(dev, kb, card)
     prng_phase(dev, kb, report, kernels, card, drop_launches, flag)
-    bench_phase(card)
     say(f"chip_smoke took {time.perf_counter() - t_start:.1f} s after the "
         "device check")
 
@@ -1031,7 +1024,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
         return float(np.linalg.norm(got - oracle.transform_np(T_ref, valid),
                                     axis=-1).max())
 
-    say(f"[7/16 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
+    say(f"[7/15 registration] src {n_src} points at a {sc.leaf:.4f} m leaf "
         f"({REG_CAP} slots), dst = src moved by a 0.05 rad / 5 cm pose + "
         f"1 mm noise")
 
@@ -1391,7 +1384,7 @@ def tsdf_phase(dev, kb, report, kernels, card) -> None:
     check(torch.equal(hg, hw), "K5 differs from plain on hand-made windows")
     check(bool((hw == 0).any()) and bool((hw != 0).any()),
           "hand-made windows missed a case")
-    say(f"[8/16 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
+    say(f"[8/15 tsdf] {TSDF_NCAM} x {H}x{W} u16 into {TSDF_GRID} at "
         f"{TSDF_LEAF} m; REFINE bricks per camera {n_refine} of "
         f"{refine[0].numel()}")
     say(f"    (a) K5 bitwise equal to plain on camera 0's {bsel.numel()} "
@@ -1691,7 +1684,7 @@ def stream_phase(dev, kb, card) -> None:
                               "segment_sum_sorted": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
-                    say(f"[9/16 stream] {card}: {NCAM} x {H}x{W} snappy, "
+                    say(f"[9/15 stream] {card}: {NCAM} x {H}x{W} snappy, "
                         f"{'DEPTH16_COLOR' if color else 'DEPTH16'}, "
                         f"sync_every={sync_every}: {STREAM_FRAMES} frames "
                         f"bitwise equal to the direct call "
@@ -1705,7 +1698,7 @@ def stream_phase(dev, kb, card) -> None:
                 # contention of a running stream
                 t = time.perf_counter()
                 for _ in range(10):
-                    client._snapshot(wake=False)
+                    client._snapshot()
                 snap_ms = (time.perf_counter() - t) * 100
                 say(f"    direct StitchingPipeline on the same frames "
                     f"{direct_ms:.3f} ms/frame (median of 10 synced calls); "
@@ -1973,7 +1966,7 @@ def map_phase(dev, kb, report, kernels, card) -> None:
                     f"launches; most device time: " + "; ".join(
                         f"{t_:.4f} ms x{n_:.0f} {name[:60]}"
                         for t_, n_, name in top[:4]))
-            say(f"[10/16 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
+            say(f"[10/15 map] {card}: {NCAM} x {H}x{W} stitched ({tag}) "
                 f"into {MAP_CAPACITY} slots at {MAP_LEAF} m, decay {decay}: "
                 f"{n} updates, 'auto' == 'torch' bit for bit after each; "
                 f"voxels per update {counts}; launches {launches} (1 K1 per "
@@ -2243,7 +2236,7 @@ def extras_phase(dev, kb, card) -> None:
     dots_d = np.abs(nd.cpu().numpy()[m_src][on_plane] @ want_d)
     check(dots_d.min() > 0.999, f"moved disc normals off by up to "
           f"{np.degrees(np.arccos(dots_d.min())):.3f} deg")
-    say(f"[11/16 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
+    say(f"[11/15 extras] {card}: (a) estimate_normals r {NORMAL_RADIUS} m, "
         f"{n_src} points: {t_ns * 1e3:.1f} / {t_nd * 1e3:.1f} ms (src / "
         f"dst), supported {int(oks.sum())} / {int(okd.sum())}, host syncs "
         f"{syncs_n}; {int(on_plane.sum())} disc points: normals within "
@@ -2641,7 +2634,7 @@ def analysis_phase(dev, kb, card):
         if tag == "113k":
             line = disc_check(pc, PLANE_THR)
         planes[tag] = model
-        say(f"[12/16 analysis] {card}: (a) segment_plane {tag} "
+        say(f"[12/15 analysis] {card}: (a) segment_plane {tag} "
             f"({pc.capacity} slots, {int(pc.mask.sum())} valid), "
             f"{RANSAC_M} hypotheses, {PLANE_THR} m: {int(cnt)} inliers, "
             f"all within the threshold{line}; {ms:.3f} ms per call "
@@ -3499,7 +3492,7 @@ def parallel_phase(dev, card, unsharded_ms: float, worlds=None) -> None:
         a = one["stitch"][i]
         name = ("make_shardmap_stitch" if kind == "shardmap"
                 else "make_sharded_stitch")
-        say(f"[13/16 parallel] (a) {labels[0]} {card}: {name} "
+        say(f"[13/15 parallel] (a) {labels[0]} {card}: {name} "
             f"{tag}: {SHARD_FRAMES} frames track mode, points_out "
             f"{a['pts'][0]}..{a['pts'][-1]}; 'auto' == 'torch' bit for "
             f"bit; |ext - stitch_step| {a['d_unsharded']:.3g} (points_out "
@@ -3936,7 +3929,7 @@ def prng_phase(dev, kb, report, kernels, card, drop_launches: dict,
     check(torch.equal(c, KP.scan16(p.cpu()).to(dev)),
           "(a) scan16 on the card differs from the CPU's")
     lib_cumsum = torch.cumsum(p, 0)
-    say(f"[15/16 draws] {card}: (a) threefry2x32 bit for bit plain at 1, "
+    say(f"[15/15 draws] {card}: (a) threefry2x32 bit for bit plain at 1, "
         f"{m3} and {jd['bits_n']} counters (bits and pairs); scan16 of the "
         f"flagship's {p.shape[0]}-slot mask ({int(flag.mask.sum())} valid) "
         f"bit for bit plain and the CPU, c[-1] = {float(c[-1]):.9g} "
@@ -4072,7 +4065,7 @@ def commands_phase(dev, kb, card) -> None:
                   f"want {per_frame} per frame")
         trace_mib = os.path.getsize(trace_file) / 2 ** 20
     plain = run_cluster(dev, "snappy", ["--codec", "snappy"], "")
-    say(f"[14/16 commands] {card}: (a) scripts/local_cluster_torch.py "
+    say(f"[14/15 commands] {card}: (a) scripts/local_cluster_torch.py "
         f"--cameras {NCAM} --frames {CLUSTER_FRAMES} at {W}x{H}, servers "
         f"and stitch_cli as processes on loopback: traced (zlib, "
         f"--save-dir, --trace-dir) {traced['frames']} frames, fps "
@@ -4130,56 +4123,6 @@ def commands_phase(dev, kb, card) -> None:
         f"blocked ({proc.stdout.split()[-1]} modules loaded)")
     say(f"    phase 14 took {time.perf_counter() - t_phase:.1f} s")
 
-
-
-def json_numbers(x, path=""):
-    """(path, value) of every number in a parsed JSON value."""
-    if isinstance(x, dict):
-        for k, v in x.items():
-            yield from json_numbers(v, f"{path}.{k}")
-    elif isinstance(x, list):
-        for i, v in enumerate(x):
-            yield from json_numbers(v, f"{path}[{i}]")
-    elif isinstance(x, (int, float)) and not isinstance(x, bool):
-        yield path, x
-
-
-def bench_phase(card) -> None:
-    """Phase 16: bench_torch.py as a process, its last line checked."""
-    import math
-
-    from bench_torch import MAX_LINE
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.join(REPO,
-                                                        "bench_torch.py")],
-                          cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    wall = time.perf_counter() - t
-    check(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}:"
-                                f"\n{proc.stderr[-3000:]}")
-    lines = proc.stdout.strip().splitlines()
-    line = lines[-1]
-    check(len(line) <= MAX_LINE, f"bench_torch.py's last line has "
-                                 f"{len(line)} characters")
-    res = json.loads(line)
-    check({"metric", "value", "unit", "vs_baseline", "extras"} <= set(res),
-          f"bench_torch.py's last line lacks bench.py's keys: {sorted(res)}")
-    check(res["value"] > 0, f"bench_torch.py's value {res['value']}")
-    bad = [p for p, v in json_numbers(res) if not math.isfinite(v)]
-    check(not bad, f"bench_torch.py's last line has non-finite {bad}")
-    check(res["extras"]["tsdf"]["integrate_bitwise_mxu_vs_dense"] is True,
-          "bench_torch.py: the pruned integrate is not the dense one")
-    sections = {}
-    for ln in lines[:-1]:
-        if ln.startswith('{"section"'):
-            sec = json.loads(ln)
-            sections[sec.pop("section")] = sec
-    launches = sections["launches"]
-    say(f"[16/16 bench] {card}: bench_torch.py exit 0 in {wall:.1f} s "
-        f"({sections['run']['seconds_after_build']:.1f} s after the "
-        f"build), last line {len(line)} characters; launches by row: "
-        + "; ".join(f"{k} {v}" for k, v in launches.items()))
-    say(f"    bench_torch.py's line: {line}")
 
 
 if __name__ == "__main__":

@@ -14,11 +14,13 @@ camera frame, and from the ingest threads, for every camera frame,
 received to its slot written: decompression, parse and the copy under the
 slot's lock).
 
-The overlapped ``run()`` is software-pipelined one frame deep only while
-it runs late: frame N is synced and delivered after frame N+1's dispatch,
-so N+1's snapshot and copy overlap N's compute. Paced by ``fps`` with the
-next tick still ahead, it syncs and delivers frame N straight after N's
-dispatch instead, as the host would otherwise sleep with a finished frame.
+``run()`` has one loop. Overlapped, it is software-pipelined one frame
+deep only while it runs late: frame N is synced and delivered after frame
+N+1's dispatch, so N+1's snapshot and copy overlap N's compute. Paced by
+``fps`` with the next tick still ahead, it syncs and delivers frame N
+straight after N's dispatch instead, as the host would otherwise sleep
+with a finished frame. ``overlap=False`` is that at-once order for every
+frame.
 
 The host→device feed on a CUDA pipeline: each snapshot is written into a
 slot of a ring of **pinned** host buffers and copied with
@@ -378,7 +380,7 @@ class MulticameraClient:
         for s in self._slots:
             s.consumed.set()
 
-    def _snapshot(self, wake: bool = True):
+    def _snapshot(self):
         """Copy the freshest frames into a staging slot; set its cam mask.
         Records the ``frame_age`` stage (the snapshot instant less the
         oldest live camera's receipt) when a camera is live. Returns
@@ -406,8 +408,6 @@ class MulticameraClient:
                 if fresh and (oldest is None or s.stamp < oldest):
                     oldest = s.stamp
             mask[i] = fresh
-        if wake:
-            self._wake_pulls()
         if oldest is not None:
             self.stages.record("frame_age", now - oldest)
         return stage, int(mask.sum())
@@ -459,38 +459,59 @@ class MulticameraClient:
         clouds stay on the device)."""
         return int(out.metrics.points_out)
 
-    def _timed_sync(self, out: StitchOutput, t_out: float) -> float:
-        """``_sync`` a frame of ``run``'s pipeline whose dispatch ended at
-        ``t_out``: records the ``held`` stage (how long the loop held the
-        frame before its sync). Returns the instant the sync began."""
+    def _launch(self) -> Optional[tuple]:
+        """Snapshot the freshest frames, copy them to the device and dispatch
+        their stitch; records the ``snapshot``, ``h2d`` and ``dispatch``
+        stages and releases the pulls. Returns the frame in flight (out,
+        snapshot start, npix, its dispatch's end), or None if no camera is
+        live."""
+        t0 = time.time()
+        with annotate("pcs.client.snapshot"):
+            stage, live = self._snapshot()
+        self.metrics.dropped_cameras = self.pipeline.cfg.num_cameras - live
+        t1 = time.time()
+        if live > 0:
+            with annotate("pcs.client.h2d"):
+                dev, npix = self._transfer(stage)
+            t2 = time.time()
+            with annotate("pcs.client.dispatch"):
+                out = self._dispatch(dev)
+            t_out = time.time()
+            self.stages.record("dispatch", t_out - t2)
+            self._wake_pulls()  # decode rides under sync_wait
+            # latency spans snapshot start -> sync; the frame is held from
+            # its dispatch's end to its sync
+            frame = (out, t0, npix, t_out)
+        else:
+            t2, frame = t1, None
+            self._wake_pulls()
+        self.stages.record("snapshot", t1 - t0)
+        self.stages.record("h2d", t2 - t1)
+        return frame
+
+    def _timed_sync(self, out: StitchOutput, t0: float, npix: int,
+                    t_out: float) -> None:
+        """``_sync`` a frame whose snapshot began at ``t0`` and whose
+        dispatch ended at ``t_out``: records the ``held`` stage (how long the
+        frame was held before its sync), ``sync_wait`` and the frame's
+        latency."""
         t_wait = time.time()
         self.stages.record("held", t_wait - t_out)
         with annotate("pcs.client.sync"):
             self._sync(out)
-        return t_wait
+        t3 = time.time()
+        self.stages.record("sync_wait", t3 - t_wait)
+        self.metrics.record(t3 - t0, points=npix)
 
     def step(self) -> Optional[StitchOutput]:
         """One serial stitch tick over the freshest frames (snapshot → H2D →
         compute → sync). None if no camera is live. For steady-state
         streaming prefer run(), which overlaps H2D with compute."""
-        t0 = time.time()
-        stage, live = self._snapshot(wake=False)
-        self.metrics.dropped_cameras = self.pipeline.cfg.num_cameras - live
-        if live == 0:
-            self._wake_pulls()
+        frame = self._launch()
+        if frame is None:
             return None
-        t1 = time.time()
-        dev, npix = self._transfer(stage)
-        t2 = time.time()
-        out = self._dispatch(dev)
-        self._wake_pulls()  # ingest recv/decode rides under the sync wait
-        self._sync(out)
-        t3 = time.time()
-        self.stages.record("snapshot", t1 - t0)
-        self.stages.record("h2d", t2 - t1)
-        self.stages.record("stitch", t3 - t2)
-        self.metrics.record(t3 - t0, points=npix)
-        return out
+        self._timed_sync(*frame)
+        return frame[0]
 
     def run(self, num_frames: Optional[int] = None,
             on_frame: Optional[Callable[[int, StitchOutput], None]] = None,
@@ -506,11 +527,13 @@ class MulticameraClient:
         the wait and the next frame's dispatch; unpaced, the loop is always
         late. Each drained frame records the stage ``drain_early`` (seconds
         left to the next tick) or ``drain_piped`` (seconds the loop ran past
-        its tick, 0 unpaced). on_frame(n, out) sees every completed frame
-        in order.
+        its tick, 0 unpaced). With overlap=False every frame is synced and
+        delivered at once, and neither stage is recorded. on_frame(n, out)
+        sees every completed frame in order.
 
         sync_every: host-sync (and record a latency sample) only every K-th
-        frame; the other frames count for throughput only.
+        frame; the other frames count for throughput only. overlap=False
+        syncs every frame.
 
         num_frames counts stitched frames. dead_timeout (seconds, None =
         forever) bounds how long a bounded run waits with zero live cameras
@@ -525,9 +548,7 @@ class MulticameraClient:
         """
         if num_frames is not None and num_frames <= 0:
             return self.metrics
-        if not overlap:
-            return self._run_serial(num_frames, on_frame, dead_timeout, fps)
-        sync_every = max(int(sync_every), 1)
+        sync_every = max(int(sync_every), 1) if overlap else 1
         self._ensure_stage_ring(sync_every + 2)
         n = 0
         last_alive = time.time()
@@ -537,18 +558,16 @@ class MulticameraClient:
         # start, npix, its dispatch's end, seconds the loop was past its tick)
         pending: Optional[tuple] = None
 
-        def drain(frame, stage: str) -> bool:
+        def drain(frame, stage: Optional[str]) -> bool:
             """Sync (every sync_every-th and the last frame), record and
             deliver frame n; True once a bounded run has all its frames."""
             nonlocal n, last_alive
             out, t0, npix, t_out, value = frame
-            self.stages.record(stage, value)
+            if stage is not None:
+                self.stages.record(stage, value)
             if n % sync_every == 0 or \
                     (num_frames is not None and n + 1 >= num_frames):
-                t_wait = self._timed_sync(out, t_out)
-                t3 = time.time()
-                self.stages.record("sync_wait", t3 - t_wait)
-                self.metrics.record(t3 - t0, points=npix)
+                self._timed_sync(out, t0, npix, t_out)
             else:
                 self.metrics.record_unsynced(points=npix)
             if on_frame is not None:
@@ -574,38 +593,16 @@ class MulticameraClient:
                             if delay > 0:
                                 self._stop.wait(delay)
                         next_t = max(next_t + tick, time.time())
-                    t0 = time.time()
-                    with annotate("pcs.client.snapshot"):
-                        stage, live = self._snapshot(wake=False)
-                    self.metrics.dropped_cameras = \
-                        self.pipeline.cfg.num_cameras - live
-                    t1 = time.time()
-                    if live > 0:
-                        with annotate("pcs.client.h2d"):
-                            dev, npix = self._transfer(stage)
-                        t2 = time.time()
-                        with annotate("pcs.client.dispatch"):
-                            out = self._dispatch(dev)
-                        t_out = time.time()
-                        self.stages.record("dispatch", t_out - t2)
-                        self._wake_pulls()  # decode rides under sync_wait
-                        # latency spans snapshot start -> sync; the frame
-                        # is held from its dispatch's end to its sync
-                        nxt = (out, t0, npix, t_out)
-                    else:
-                        t2, nxt = t1, None
-                        self._wake_pulls()
-                        if pending is None:
-                            # nothing in flight and nothing to stitch: do not
-                            # busy-spin, and give up once a bounded run's
-                            # outage outlasts dead_timeout
-                            if num_frames is not None and \
-                                    dead_timeout is not None and \
-                                    time.time() - last_alive > dead_timeout:
-                                break
-                            self._stop.wait(0.005)
-                    self.stages.record("snapshot", t1 - t0)
-                    self.stages.record("h2d", t2 - t1)
+                    nxt = self._launch()
+                    if nxt is None and pending is None:
+                        # nothing in flight and nothing to stitch: do not
+                        # busy-spin, and give up once a bounded run's outage
+                        # outlasts dead_timeout
+                        if num_frames is not None and \
+                                dead_timeout is not None and \
+                                time.time() - last_alive > dead_timeout:
+                            break
+                        self._stop.wait(0.005)
                 # drain frame N while N+1 runs (its copy is already enqueued)
                 if pending is not None and drain(pending, "drain_piped"):
                     break
@@ -613,7 +610,10 @@ class MulticameraClient:
                 if nxt is not None and not self._stop.is_set():
                     late = (time.time() - next_t) if tick is not None \
                         else 0.0
-                    if late < 0:
+                    if not overlap:
+                        if drain(nxt + (0.0,), None):
+                            break
+                    elif late < 0:
                         # ahead of the schedule: the host would only sleep
                         # until the next tick, so the frame is delivered
                         # now rather than after the next frame's dispatch
@@ -624,40 +624,6 @@ class MulticameraClient:
         except BaseException:
             # an exception escaping the loop (including KeyboardInterrupt)
             # tears the client down: the in-flight frame is unowned
-            self.stop()
-            raise
-        return self.metrics
-
-    def _run_serial(self, num_frames, on_frame,
-                    dead_timeout: Optional[float] = 30.0,
-                    fps: Optional[float] = None) -> FrameMetrics:
-        """Serial loop. Only stitched frames count toward num_frames;
-        dead_timeout bounds the wait during a total outage."""
-        n = 0
-        last_alive = time.time()
-        tick = (1.0 / fps) if fps else None
-        next_t = time.time() if tick is not None else 0.0
-        try:
-            while not self._stop.is_set():
-                if tick is not None:
-                    delay = next_t - time.time()
-                    if delay > 0:
-                        self._stop.wait(delay)
-                    next_t = max(next_t + tick, time.time())
-                out = self.step()
-                if out is None:
-                    if num_frames is not None and dead_timeout is not None \
-                            and time.time() - last_alive > dead_timeout:
-                        break
-                    self._stop.wait(0.005)  # all cameras down: no busy-spin
-                    continue
-                last_alive = time.time()
-                if on_frame is not None:
-                    on_frame(n, out)
-                n += 1
-                if num_frames is not None and n >= num_frames:
-                    break
-        except BaseException:
             self.stop()
             raise
         return self.metrics

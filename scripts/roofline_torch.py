@@ -28,8 +28,7 @@ operations over 132 x 128 x 1.98e9 float32 instructions a second.
 x_sol and x_alg are the measured ms over the bound.
 
 Run on the card: ``python3 scripts/roofline_torch.py`` (about 10 s after
-the build on an H100); bench_torch.py imports :func:`collect` (quick: 10 calls a
-stage, no sub-rows).
+the build on an H100).
 """
 from __future__ import annotations
 
@@ -129,18 +128,13 @@ def _time(fn, iters: int):
     return busy_us / 1e3 / iters, host_ms, launches
 
 
-def collect(iters: int = 30, quick: bool = False, device=None) -> dict:
-    """Time every stage on the card and return the roofline dict.
-
-    quick=True (bench_torch.py's block): at most 10 calls a stage and no
-    sub-rows ("sort alone", "icp_voxel"); the same stages and bounds."""
-    dev = platform_device() if device is None else torch.device(device)
+def collect(iters: int = 30) -> dict:
+    """Time every stage on the card and return the roofline dict."""
+    dev = platform_device()
     if dev.type != "cuda":
         raise RuntimeError("roofline_torch times the card; it has no CPU "
                            "mode")
     set_full_fp32_matmul()
-    if quick:
-        iters = min(iters, 10)
     ncam, h, w = 8, 480, 848
     cfg, intr, ext_np, depths_np = _flagship(ncam, h, w, dev)
     depths = torch.from_numpy(depths_np).to(dev)
@@ -174,16 +168,15 @@ def collect(iters: int = 30, quick: bool = False, device=None) -> dict:
              "sync; not run by the flagship frame (cam_voxel_enabled "
              "False)"))
 
-    if not quick:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        keys = torch.randint(0, 2 ** 30, (ncam, h * w), generator=gen,
-                             device=dev, dtype=torch.int32)
-        timed = _time(lambda: torch.sort(keys, dim=-1), iters)
-        rows.append(_row(
-            f"  sort alone (int32, {ncam} x {h * w})", timed,
-            npx * 4 + npx * (4 + PERM_BYTES), sort_bytes(npx, 4),
-            note="cam_voxel's key shape, random keys below 2^30: 4 digit "
-                 "passes"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    keys = torch.randint(0, 2 ** 30, (ncam, h * w), generator=gen,
+                         device=dev, dtype=torch.int32)
+    timed = _time(lambda: torch.sort(keys, dim=-1), iters)
+    rows.append(_row(
+        f"  sort alone (int32, {ncam} x {h * w})", timed,
+        npx * 4 + npx * (4 + PERM_BYTES), sort_bytes(npx, 4),
+        note="cam_voxel's key shape, random keys below 2^30: 4 digit "
+             "passes"))
 
     # ---- ring ICP drift: 7 pairs x 5 iterations at 2048^2 (K3) ---------
     s = cfg.icp_stride
@@ -220,14 +213,13 @@ def collect(iters: int = 30, quick: bool = False, device=None) -> dict:
     icp_voxel = voxel_alg_bytes(n_sub, 8, 7, ncam * (cap + 1), 4,
                                 row_bytes=XYZ_MASK + 12,
                                 out_bytes=XYZ_MASK + 12)
-    if not quick:
-        timed = _time(ivj, iters)
-        rows.append(_row(
-            f"  icp_voxel (stride-{s} sub -> {cap}/cam)", timed,
-            n_sub * (XYZ_MASK + 12) + ncam * cap * (XYZ_MASK + 12),
-            icp_voxel,
-            note=f"exact branch ({cfg.icp_voxel_leaf} m > 0.03 m): int64 "
-                 f"keys, 8 digit passes over {n_sub} rows; K2 7 channels"))
+    timed = _time(ivj, iters)
+    rows.append(_row(
+        f"  icp_voxel (stride-{s} sub -> {cap}/cam)", timed,
+        n_sub * (XYZ_MASK + 12) + ncam * cap * (XYZ_MASK + 12),
+        icp_voxel,
+        note=f"exact branch ({cfg.icp_voxel_leaf} m > 0.03 m): int64 "
+             f"keys, 8 digit passes over {n_sub} rows; K2 7 channels"))
 
     # ---- fuse + output voxel pass (sort + K1), packed int32 key --------
     fused = fuse_batched(cam_clouds)

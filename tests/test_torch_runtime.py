@@ -398,9 +398,9 @@ def test_bounded_run_dispatches_exactly_n(rig):
 @time_limit(30)
 @pytest.mark.parametrize("overlap", [True, False])
 def test_stream_records_held_and_frame_age(rig, overlap):
-    """One ``held`` sample per synced frame of the pipelined loop, one
-    ``frame_age`` per dispatched frame, each >= 0; the snapshot's own
-    per-camera timings are gone."""
+    """One ``held`` sample per synced frame, one ``frame_age`` per
+    dispatched frame, each >= 0; the snapshot's own per-camera timings are
+    gone."""
     servers = [rig(synthetic_frames(8, H, W, seed=s)) for s in range(2)]
     client = rig.client(MulticameraClient(
         [("127.0.0.1", s.port) for s in servers],
@@ -408,9 +408,9 @@ def test_stream_records_held_and_frame_age(rig, overlap):
     assert client.wait_for_first_frames(timeout=10)
     m = client.run(num_frames=5, overlap=overlap, sync_every=2)
     st = client.stages.stages
-    # synced: frames 0, 2 and the last, 4 (the serial loop syncs each)
+    # synced: frames 0, 2 and the last, 4 (overlap=False syncs each)
     assert len(m.latencies) == (3 if overlap else 5)
-    assert len(st.get("held", [])) == (3 if overlap else 0)
+    assert len(st.get("held", [])) == (3 if overlap else 5)
     assert len(st["frame_age"]) == 5
     assert all(v >= 0 for k in ("held", "frame_age")
                for v in st.get(k, []))
@@ -489,6 +489,24 @@ def test_paced_run_ahead_of_its_ticks_delivers_each_frame_before_the_next(
     assert len(st["drain_early"]) == 4 and "drain_piped" not in st
     assert all(0 < v <= 0.25 for v in st["drain_early"])
     assert len(st["held"]) == len(synced)
+
+
+@time_limit(30)
+@pytest.mark.parametrize("fps", [None, 4.0, 1e6])
+def test_serial_run_delivers_each_frame_before_the_next(rig, fps):
+    """overlap=False, paced ahead of its ticks, behind them or unpaced:
+    frame N is snapshot, dispatched, synced and delivered before frame N+1's
+    snapshot, every frame is synced whatever ``sync_every`` says, and no
+    ``drain_*`` stage is recorded."""
+    client, events, on_frame = _ordered_client(rig)
+    m = client.run(num_frames=4, on_frame=on_frame, overlap=False,
+                   sync_every=3, fps=fps)
+    assert events == [(kind, k) for k in range(4)
+                      for kind in ("snapshot", "dispatch", "sync", "deliver")]
+    assert m.total_frames == 4 and len(m.latencies) == 4
+    st = client.stages.stages
+    assert len(st["held"]) == len(st["sync_wait"]) == 4
+    assert not [k for k in st if k.startswith("drain_")]
 
 
 @time_limit(30)

@@ -24,6 +24,8 @@ from pointcloud_stitching_tpu.models import stitch_points_step as jax_points
 from pointcloud_stitching_tpu.models import stitch_step as jax_step
 from pointcloud_stitching_tpu.models.stitcher import (
     _compose_ring_corrections as jax_compose, autofit_out_leaf as jax_autofit)
+from pointcloud_stitching_tpu.runtime import (
+    synthetic_frames as jax_synthetic_frames)
 from pointcloud_stitching_tpu.utils.config import StitchConfig as JConfig
 import pointcloud_stitching_tpu_torch as P
 from pointcloud_stitching_tpu_torch.models.stitcher import (
@@ -33,6 +35,9 @@ from pointcloud_stitching_tpu_torch.utils.convert import (
 from oracle import random_se3, synth_depth_frame
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+import bench_card  # noqa: E402
 NCAM, H, W = 3, 120, 212
 # one compiled JAX step shared by every test of this file
 _jax_step = jax.jit(jax_step, static_argnums=0)
@@ -204,6 +209,41 @@ def test_pipeline_autofit_grows_a_saturated_leaf():
         leaves.append(float(pipe.out_leaf))
     np.testing.assert_allclose(leaves, [0.025, 0.03125, 0.0390625],
                                rtol=1e-6)
+
+
+def test_pipeline_autofit_trajectory_matches_jax():
+    """bench.py's structured scene (``synthetic_frames`` at the flagship's
+    extrinsics, 2 cameras of 60x106, ring ICP on) into a 2048-slot grid,
+    which saturates at 1 cm: over 12 frames the pipeline's output leaf
+    grows as JAX's stitch step and controller grow it on the same inputs,
+    and the scene first fits at the same frame, after the leaf has grown."""
+    ncam, h, w, cap, frames = 2, 60, 106, 2048, 12
+    fields = {**bench_card.flagship_fields(ncam, h, w), "out_capacity": cap,
+              "out_leaf_autofit": True, "out_leaf_max": 0.04}
+    _, intr, ext, _ = bench_card._flagship(ncam, h, w)
+    sd = np.stack([jax_synthetic_frames(1, h, w, seed=s)[0]
+                   for s in range(ncam)])
+    jcfg = JConfig(**fields, kernel_impl="xla")
+    i0 = JIntrinsics.create(fx=bench_card.FX, fy=bench_card.FY, ppx=w / 2.0,
+                            ppy=h / 2.0, width=w, height=h)
+    ji = i0.stack([i0] * (ncam - 1))
+    jleaf = jnp.float32(jcfg.out_voxel_leaf)
+    pipe = P.StitchingPipeline(P.StitchConfig(**fields), intr, ext,
+                               device="cpu")
+    want, got = [], []
+    for _ in range(frames):
+        jout = _jax_step(jcfg, ji, jnp.asarray(ext), jnp.asarray(sd),
+                         out_leaf=jleaf)
+        jleaf = jax_autofit(jout.metrics.points_out, jleaf, capacity=cap,
+                            floor=jcfg.out_voxel_leaf, ceil=0.04)
+        out = pipe(torch.from_numpy(sd))
+        want.append((float(jleaf), int(jout.metrics.points_out) < cap))
+        got.append((float(pipe.out_leaf), int(out.metrics.points_out) < cap))
+    np.testing.assert_allclose([g[0] for g in got], [v[0] for v in want],
+                               rtol=1e-6)
+    fits = [v[1] for v in want]
+    assert [g[1] for g in got] == fits
+    assert 2 < fits.index(True) + 1 < frames     # the leaf grew first
 
 
 def test_stitch_step_refuses_colour():
