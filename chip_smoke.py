@@ -16,7 +16,7 @@ the stitch CLI's publisher, viewer and trace) and the sharded port
 (``parallel/``) in worlds of 1 and 4 ranks and the port's own commands
 (the loopback-cluster launcher, the ``pcs-torch-*`` targets, the JAX
 package's positional order) and the random draws (``utils/prng.py``, JAX's
-threefry2x32 key stream), and checks the eight hand-written CUDA kernels
+threefry2x32 key stream), and checks the nine hand-written CUDA kernels
 on those paths:
 
   1. device and settings: the card's name and power limit; full float32
@@ -26,9 +26,14 @@ on those paths:
      path gives it, on the card, then timed in turns with CUDA events
      (device time, the queue held by a spinning kernel while the calls are
      enqueued; the time per call back to back beside it): K1 bit for bit on
-     the packed branch of the global pass (and whether the exact branch is
-     bitwise too), two launches equal, its one launch's grid printed, and
-     at 10 channels on the coloured global pass (its own kernels entry); K2
+     the packed branch's rows as PyTorch composes them (and whether the
+     exact branch is bitwise too), two launches equal, its one launch's
+     grid printed, and at 10 channels; the global pass's packed route on
+     the card (``segment_sum_packed``) on the flagship cloud, depth and
+     colour: the pack kernel (``voxel_pack``) and K1 on packed rows
+     (``segment_sum_from_keys``) each bit for bit its plain version and
+     timed against it (their own kernels entries), and the route against
+     the composition and K1 on its rows; K2
      bit for bit at the ring-ICP shape and at the per-camera 1 cm pass, two launches equal,
      faster than index_add_, its launch configuration printed; K3 bit for
      bit at the ring shape (a tie across two reference slices goes to the
@@ -43,8 +48,9 @@ on those paths:
   4. the slice: 10 frames in 'track' mode with kernel_impl='auto' and with
      'torch', at the saturated 1 cm leaf and at an unsaturated 6 cm leaf;
      outputs must agree and the kernels' launch counts must show that the
-     'auto' run went through them (5 NN, 1 K1 and 1 K2 launch per frame at
-     the flagship config); then the coloured step (uint8 colour from seed
+     'auto' run went through them (5 NN, 1 pack, 1 K1 on packed rows and 1
+     K2 launch per frame at the flagship config; K1 on flags at 6 cm);
+     then the coloured step (uint8 colour from seed
      1, 10 channels through K1): 'auto' = 'torch' bit for bit, the same
      launches, and mapped colour with the depth intrinsics and identity
      depth->colour extrinsics equal to depth-aligned colour (one
@@ -239,6 +245,13 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def k1_launches(launches: dict) -> int:
+    """K1's launches in a ``LAUNCHES`` snapshot, on flags and on packed
+    rows (one cloud's packed voxel pass on the card)."""
+    return (launches.get("segment_sum_from_flags", 0)
+            + launches.get("segment_sum_from_keys", 0))
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -254,10 +267,20 @@ def kernel_inputs(dev):
     from pointcloud_stitching_tpu_torch import Intrinsics
     from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
         prepare_ref_batched)
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+        packed_rows)
     from pointcloud_stitching_tpu_torch.ops import (deproject, fuse_batched,
                                                     grid_normals, se3_apply)
     from pointcloud_stitching_tpu_torch.ops import voxel as V
-    from pointcloud_stitching_tpu_torch.utils.types import PointCloud
+    from pointcloud_stitching_tpu_torch.utils.types import PointCloud, scalar
+
+    def packed_1cm(pc):
+        """The packed branch's arguments at 1 cm as ``voxel_downsample``
+        makes them (``voxel_pack``'s, ``segment_sum_packed``'s)."""
+        inv = 1.0 / scalar(0.01, pc.xyz)
+        ijk, min_ijk = V._indices_and_min(pc.xyz, pc.mask, inv)
+        return (pc.xyz, pc.mask, pc.rgb, inv, min_ijk,
+                torch.clamp(V._extents(ijk), min=1))
 
     ext_np, depths_np = flagship_scene()
     depths = torch.from_numpy(depths_np).to(dev)
@@ -267,9 +290,10 @@ def kernel_inputs(dev):
     raw = deproject(depths, intr, depth_scale=0.001, z_min=0.1, z_max=10.0)
     fused = fuse_batched(raw.replace(xyz=se3_apply(
         torch.from_numpy(ext_np).to(dev), raw.xyz)))
-    # K1: the global pass, packed branch at 1 cm and exact branch at 6 cm
-    ijk = V.voxel_indices(fused.xyz, fused.mask, 0.01)
-    flags, vals, _ = V._sorted_segments_packed(fused, 0.01, ijk)
+    # K1: the global pass, packed branch at 1 cm (its arguments, and its
+    # rows as PyTorch composes them) and exact branch at 6 cm
+    pk = packed_1cm(fused)
+    flags, vals = packed_rows(*pk)
     flags6, vals6 = V._sorted_segments(fused, 0.06)
     # K1 at 10 channels: the coloured global pass (bench.py's coloured
     # cell: uint8 colours from seed 1), packed branch at 1 cm
@@ -277,7 +301,8 @@ def kernel_inputs(dev):
         0, 256, (NCAM, H, W, 3), dtype=np.uint8)).to(dev)
     fused_c = fused.replace(rgb=torch.where(
         fused.mask[:, None], colors.reshape(-1, 3).to(torch.float32), 0.0))
-    flags_c, vals_c, _ = V._sorted_segments_packed(fused_c, 0.01, ijk)
+    pk_c = packed_1cm(fused_c)
+    flags_c, vals_c = packed_rows(*pk_c)
     del fused_c
 
     # K2: the batched ICP voxel pass (exact branch, normals in rgb), and
@@ -299,8 +324,7 @@ def kernel_inputs(dev):
                      mask=(sub_mask & nvalid).reshape(NCAM, -1),
                      rgb=nrm.reshape(NCAM, -1, 3))
     k2 = [("ring ICP", *flat_segments(*V._sorted_segments(sub, 0.07), 2048))]
-    ijkc = V.voxel_indices(raw.xyz, raw.mask, 0.01)
-    flagsc, valsc, _ = V._sorted_segments_packed(raw, 0.01, ijkc)
+    flagsc, valsc = packed_rows(*packed_1cm(raw))
     k2.append(("1 cm camera pass", *flat_segments(flagsc, valsc, 131072)))
 
     # K3: ring ICP NN, 8 pairs of 2048 x 2048, ~10% of refs masked, and an
@@ -318,7 +342,7 @@ def kernel_inputs(dev):
     return types.SimpleNamespace(
         ext_np=ext_np, depths_np=depths_np, depths=depths, intr=intr,
         colors=colors, k1=(vals, flags), k1_exact=(vals6, flags6),
-        k1_rgb=(vals_c, flags_c), k2=k2,
+        k1_rgb=(vals_c, flags_c), packed=(pk, pk_c), k2=k2,
         k3=(q, r, rmask, prepare_ref_batched(r, rmask)), rng=rng)
 
 
@@ -426,6 +450,98 @@ def map_color_step(dev, kb, report, depths, intr) -> None:
            times, points * (MASK_BYTES + RGB_BYTES) + valid * XYZ_BYTES,
            valid * OPS_PER_POINT, library_ms=times[1])
     del pc, color, got, again, want, bad
+
+
+def packed_step(kb, report, packed, cap: int) -> None:
+    """Phase 3's packed route of the global pass (``segment_sum_packed``)
+    on the flagship cloud (3,256,320 points at 1 cm into ``cap`` slots),
+    depth and colour: the pack kernel's key, offset and colour words and
+    K1 on packed rows' sums each bit for bit their plain versions, two
+    launches equal, one launch each a call; each timed in turns with its
+    plain version, and the route beside the composition it replaced
+    (``packed_rows`` and K1 on its flags)."""
+    import torch
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+        SENTINEL, packed_rows, run_starts, segment_sum_from_flags,
+        segment_sum_from_keys, segment_sum_packed, voxel_pack)
+    for args, tag in zip(packed, ("", " (colour)")):
+        xyz, mask, rgb, dims = args[0], args[1], args[2], args[5]
+        n = xyz.shape[0]
+        kb.reset_launches()
+        got_w = voxel_pack(*args, impl="cuda")
+        again_w = voxel_pack(*args, impl="cuda")
+        want_w = voxel_pack(*args, impl="torch")
+        for a, b, c, name in zip(got_w, again_w, want_w,
+                                 ("key", "off", "col")):
+            check((a is None and b is None and c is None)
+                  or (torch.equal(a, c) and torch.equal(a, b)),
+                  f"voxel_pack{tag}: the {name} words differ from plain or "
+                  "between two launches")
+        key, off, col = got_w
+        skey, perm = torch.sort(key)
+        words = (skey, perm, off, col, dims, cap)
+        got = segment_sum_from_keys(*words, impl="cuda")
+        again = segment_sum_from_keys(*words, impl="cuda")
+        want = segment_sum_from_keys(*words, impl="torch")
+        route = segment_sum_packed(*args, cap, impl="cuda")
+        route_plain = segment_sum_packed(*args, cap, impl="torch")
+        torch.cuda.synchronize()
+        check(dict(kb.LAUNCHES) == {"voxel_pack": 3,
+                                    "segment_sum_from_keys": 3},
+              f"packed route{tag}: launches {dict(kb.LAUNCHES)}, want one "
+              "pack and one K1 a call")
+        check(torch.equal(got, want), f"K1 on packed rows{tag}: sums "
+                                      "differ from plain")
+        check(torch.equal(got, again), f"K1 on packed rows{tag}: two "
+                                       "launches differ")
+        check(torch.equal(route, route_plain) and torch.equal(route, got),
+              f"segment_sum_packed{tag}: the route differs from plain")
+        ch = got.shape[1]
+        t_pack = time_in_turns(lambda: voxel_pack(*args, impl="cuda"),
+                               lambda: voxel_pack(*args, impl="torch"))
+        t_k1 = time_in_turns(
+            lambda: segment_sum_from_keys(*words, impl="cuda"),
+            lambda: segment_sum_from_keys(*words, impl="torch"))
+
+        def composed():
+            flags, vals = packed_rows(*args)
+            return segment_sum_from_flags(vals, flags, cap, impl="cuda")
+
+        t_route = time_in_turns(
+            lambda: segment_sum_packed(*args, cap, impl="cuda"), composed)
+        t_sort = cuda_ms(lambda: torch.sort(key), 20)
+        # what each function's data needs: the pack reads every point's
+        # xyz and mask (and rgb) and writes its key and offset (and colour)
+        # words; K1 reads the valid rows whose run has a slot (the key, the
+        # permutation and the words through it) and writes every slot
+        valid = int(mask.sum())
+        starts = run_starts(skey, skey != SENTINEL)
+        rows_kept = int(((torch.cumsum(starts.to(torch.int32), 0) <= cap)
+                         & (skey != SENTINEL)).sum())
+        word_b = nbytes(*(w for w in got_w if w is not None))
+        row_b = (skey.element_size() + perm.element_size()
+                 + off.element_size() * (1 if col is None else 2))
+        say(f"    packed route{tag} {n} points ({valid} valid, "
+            f"{int(starts.sum())} voxels) cap {cap}: the pack's words and K1 "
+            f"on packed rows bitwise equal to plain, two launches each "
+            f"bitwise equal, the route bitwise its plain version; route "
+            f"{t_route[0]:.4f} ms (pack, torch.sort {t_sort:.4f} ms, K1) "
+            f"against the composition and K1 on its flags {t_route[1]:.4f} "
+            f"ms; {rows_kept} valid rows have a slot")
+        source = "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu"
+        report(f"voxel_pack{tag}", source,
+               "none: pointcloud_stitching_tpu/ops/voxel.py:88 "
+               "_sorted_segments_packed (XLA fuses it into the sort's "
+               "operands)", 0.0, t_pack,
+               nbytes(*(a for a in (xyz, mask, rgb) if a is not None))
+               + word_b, n * 12)
+        report("segment_sum_from_keys" + (" (10 channels)" if col is not None
+                                          else ""), source,
+               "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
+               (got - want).abs().max().item(), t_k1,
+               rows_kept * row_b + nbytes(got), rows_kept * ch)
+        del got_w, again_w, want_w, key, off, col, skey, perm, words, got
+        del again, want, route, route_plain, starts
 
 
 def main() -> int:
@@ -587,19 +703,24 @@ def main() -> int:
     rows_c = int((torch.cumsum(flags_c.to(torch.int32), 0) <= cap).sum())
     ch_c = vals_c.shape[1]
     all_c, _ = bound(nbytes(vals_c, flags_c, gc), vals_c.numel())
+    b_c, _ = bound(nbytes(flags_c, gc) + rows_c * ch_c * vals_c.element_size(),
+                   rows_c * ch_c)
+    # no kernels entry: the coloured global pass runs K1 on packed rows
+    # (below); K1 on flags at 10 channels is the coloured voxel map's
+    # (phase 10's entry)
     say(f"    K1 coloured {tuple(vals_c.shape)} cap {cap}: bitwise equal "
         f"({int((wc[:, 6] > 0).sum())} segments, rgb sums "
         f"{float(wc[:, 7:10].sum()):.6g}), two launches bitwise equal; 1 "
         f"launch of {kc[0]} tiles + {kc[1]} zero-only blocks x "
         f"{k1_launch(ch_c)}; {rows_c} rows have an id below the capacity; "
-        f"bound with every row read {all_c:.4f} ms")
-    report("segment_sum_from_flags (10 channels)",
-           "pointcloud_stitching_tpu_torch/csrc/segment_reduce.cu",
-           "pointcloud_stitching_tpu/kernels/segment_reduce.py:161",
-           (gc - wc).abs().max().item(), tc,
-           nbytes(flags_c, gc) + rows_c * ch_c * vals_c.element_size(),
-           rows_c * ch_c)
+        f"kernel {tc[0]:.4f} ms (per call back to back {tc[2]:.4f} ms), "
+        f"plain {tc[1]:.4f} ms, bound {b_c:.4f} ms; with every row read "
+        f"{all_c:.4f} ms")
     del vals_c, flags_c, gc, gc_again, wc
+
+    # the global pass's packed route: the pack kernel, the sort, K1 on
+    # packed rows (their own kernels entries)
+    packed_step(kb, report, ki.packed, cap)
 
     # the colour map at the XYZRGB rig's shapes (its own kernels entry)
     map_color_step(dev, kb, report, depths, intr)
@@ -767,7 +888,12 @@ def main() -> int:
         check(ca.shape == ct.shape, f"{tag}: cloud shapes differ")
         d_cloud = float(np.abs(np.sort(ca, 0) - np.sort(ct, 0)).max())
         check(d_cloud <= ATOL_SLICE, f"{tag}: clouds differ {d_cloud}")
-        per_frame = {"nn_batched_prepared": 5, "segment_sum_from_flags": 1,
+        # the 1 cm global pass is packed (the pack kernel, then K1 on
+        # packed rows), the 6 cm one exact (K1 on flags)
+        packed = int(not overrides)
+        per_frame = {"nn_batched_prepared": 5,
+                     "segment_sum_from_flags": 1 - packed,
+                     "segment_sum_from_keys": packed, "voxel_pack": packed,
                      "segment_sum_sorted": 1 + int(bool(overrides))}
         for name, k in per_frame.items():
             check(la.get(name, 0) == k * FRAMES,
@@ -776,9 +902,12 @@ def main() -> int:
         check(not lt, f"{tag}: 'torch' run launched kernels {lt}")
         pts_out = [b for _, b in ma]
         if not overrides:
-            for name in per_frame:
-                kernels[name]["launches"] = la[name]
+            for name, k in per_frame.items():
+                if k:
+                    kernels[name]["launches"] = la[name]
         else:
+            kernels["segment_sum_from_flags"]["launches"] = \
+                la["segment_sum_from_flags"]
             check(max(pts_out) < 262144,
                   f"{tag} run saturated the grid: {max(pts_out)}")
         say(f"[4/15 slice] {tag}: {FRAMES} frames track mode, points_in "
@@ -806,14 +935,15 @@ def main() -> int:
     check(torch.equal(ca.extrinsics, ct.extrinsics),
           "coloured step: extrinsics differ, 'auto' vs 'torch'")
     check(not lt, f"coloured 'torch' run launched kernels {lt}")
-    per_frame = {"nn_batched_prepared": 5, "segment_sum_from_flags": 1,
-                 "segment_sum_sorted": 1}
+    per_frame = {"nn_batched_prepared": 5, "segment_sum_from_keys": 1,
+                 "segment_sum_sorted": 1, "voxel_pack": 1}
     for name, k in per_frame.items():
         check(la.get(name, 0) == k * FRAMES,
               f"coloured: {name} launched {la.get(name, 0)} times in "
               f"{FRAMES} frames, want {k * FRAMES}")
-    kernels["segment_sum_from_flags (10 channels)"]["launches"] = \
-        la["segment_sum_from_flags"]
+    kernels["segment_sum_from_keys (10 channels)"]["launches"] = \
+        la["segment_sum_from_keys"]
+    kernels["voxel_pack (colour)"]["launches"] = la["voxel_pack"]
     n_c = int(ca.metrics.points_out)
     rgb_c = ca.cloud.rgb[ca.cloud.mask]
     check(n_c > 0 and bool((rgb_c > 0).any()), "coloured step: no colour")
@@ -1167,7 +1297,7 @@ def registration_phase(dev, kb, report, kernels, card) -> None:
     torch.cuda.synchronize()
     lg = dict(kb.LAUNCHES)
     itg = int(rg.icp.iterations)
-    check(lg.get("segment_sum_from_flags", 0) >= 2
+    check(k1_launches(lg) >= 2
           and lg.get("threefry2x32") == 1
           and lg.get("nn_batched_prepared") == 15 + itg
           and lg.get("nn_batched_prepared_ranged") == itg,
@@ -1680,8 +1810,9 @@ def stream_phase(dev, kb, card) -> None:
                     check(not bad, f"streamed frames {bad} differ from the "
                                    "direct call")
                     want_l = {"nn_batched_prepared": 5 * STREAM_FRAMES,
-                              "segment_sum_from_flags": STREAM_FRAMES,
-                              "segment_sum_sorted": STREAM_FRAMES}
+                              "segment_sum_from_keys": STREAM_FRAMES,
+                              "segment_sum_sorted": STREAM_FRAMES,
+                              "voxel_pack": STREAM_FRAMES}
                     check(launches == want_l, f"stream launches {launches}")
                     st = client.stages.summary()
                     say(f"[9/15 stream] {card}: {NCAM} x {H}x{W} snappy, "
@@ -1939,8 +2070,9 @@ def map_phase(dev, kb, report, kernels, card) -> None:
             peak = torch.cuda.max_memory_allocated() / 2 ** 20
             launches = dict(kb.LAUNCHES)
             n = len(plan)
-            want_l = {"nn_batched_prepared": 5 * n, k1: 2 * n,
-                      "segment_sum_sorted": n}
+            want_l = {"nn_batched_prepared": 5 * n, k1: n,
+                      "segment_sum_from_keys": n, "segment_sum_sorted": n,
+                      "voxel_pack": n}
             check(launches == want_l, f"map run launches {launches}, want "
                                       f"{want_l}")
             check(counts[-1] < MAP_CAPACITY, "the map saturated")
@@ -2264,8 +2396,8 @@ def extras_phase(dev, kb, card) -> None:
         T_b = load_cal(cal)
         err_b = point_err(T_b, T_glob)
         check(err_b < MAX_REG_ERR, f"--fpfh-starts 64 error {err_b} m")
-        for k in ("segment_sum_from_flags", "nn_batched_prepared",
-                  "nn_batched_prepared_ranged"):
+        check(k1_launches(launches) > 0, f"(b) launched no K1: {launches}")
+        for k in ("nn_batched_prepared", "nn_batched_prepared_ranged"):
             check(launches.get(k, 0) > 0, f"(b) launched no {k}: {launches}")
         _, t_b2 = synced_s(lambda: run_cli("register_cli", [
             sp, dp, cal, "--global", "--starts", 1, "--fpfh-starts", 32,
@@ -2695,7 +2827,7 @@ def analysis_phase(dev, kb, card):
                           f"(b) {tag}: {f} differs from the direct call")
                 # one draw a frame: one threefry2x32 and one scan16
                 draws = DROP_FRAMES if tag == "--drop-plane" else 0
-                check(launches.get("segment_sum_from_flags") == DROP_FRAMES
+                check(k1_launches(launches) == DROP_FRAMES
                       and launches.get("nn_batched_prepared")
                       == 5 * DROP_FRAMES
                       and launches.get("threefry2x32", 0) == draws
@@ -3074,14 +3206,19 @@ SHARD_RUNS = (("shardmap", "1 cm", {}),
 def _stitch_launches(kind: str, ov: dict, dev) -> dict:
     """Launches per rank of SHARD_FRAMES frames of a SHARD_RUNS run: per
     frame K2 once for the ICP pass and once for the camera pass (which
-    make_shardmap_stitch forces), K3 once per ICP iteration, K1 once; none
-    off the card."""
+    make_shardmap_stitch forces), K3 once per ICP iteration, K1 once (on
+    packed rows after the pack kernel where the global pass is packed, at 1
+    cm, else on flags); none off the card."""
     if dev.type != "cuda":
         return {}
     cam = kind == "shardmap" or bool(ov.get("cam_voxel_enabled"))
-    return {"segment_sum_sorted": (1 + int(cam)) * SHARD_FRAMES,
-            "nn_batched_prepared": 5 * SHARD_FRAMES,
-            "segment_sum_from_flags": SHARD_FRAMES}
+    want = {"segment_sum_sorted": (1 + int(cam)) * SHARD_FRAMES,
+            "nn_batched_prepared": 5 * SHARD_FRAMES}
+    if "out_voxel_leaf" not in ov:
+        want["voxel_pack"] = want["segment_sum_from_keys"] = SHARD_FRAMES
+    else:
+        want["segment_sum_from_flags"] = SHARD_FRAMES
+    return want
 
 
 def _shard_stitch(dev, mesh, world: int, rank: int) -> list:
@@ -4090,8 +4227,9 @@ def commands_phase(dev, kb, card) -> None:
                                    "differs from the keyword call")
         parts.append(name)
     launches = dict(kb.LAUNCHES)
-    for k in ("segment_sum_from_flags", "segment_sum_sorted",
-              "nn_batched_prepared", "nn_batched_prepared_ranged"):
+    for k in ("segment_sum_from_flags", "segment_sum_from_keys",
+              "voxel_pack", "segment_sum_sorted", "nn_batched_prepared",
+              "nn_batched_prepared_ranged"):
         check(launches.get(k, 0) > 0, f"(b) the calls launched no {k}")
     say(f"    (b) JAX's positional order on the card, each call bit for "
         f"bit its keyword call: {', '.join(parts)}; launches "

@@ -53,6 +53,33 @@
 // ids are kept) and a tile's latency chain (flags, count, look-back, copy,
 // scans, writes), which is hidden only by the blocks resident on an SM.
 //
+// K1 on packed rows (segment_sum_packed). The global voxel pass's packed
+// branch needs no [n, 7|10] buffer of rows and no flag bytes: the row
+// source is a template parameter of K1. PackedRows reads the sorted int32
+// voxel key, the sort's permutation and, through it, the words of the pack
+// kernel below (30-bit quantised offset, 24-bit colour). A row's flag is
+// `key != previous key` on a valid row, in registers; its channels
+// [ix·f, iy·f, iz·f, q0, q1, q2, 1] (+ [r, g, b]) are built into the
+// thread's own slot of the staging buffer, with (ix, iy, iz) decoded from
+// the key (division by nz and ny) on flagged rows only. Invalid points
+// carry the largest key, so they are a sorted suffix (about 80% of the
+// global pass's rows, after the crop): a tile that starts with one returns
+// at once, and no tile looks back into it. In the tile that holds the last
+// valid row that row ends its run, and the tile publishes F, the number of
+// runs, in one more count word (cstat[ntiles]); the zero-only blocks,
+// which cover every slot, wait for it and zero [F, capacity) (a tile zeroes
+// nothing). The sums (float64 over integers) are exact, so the result is
+// bit for bit that of FlagRows over the rows PyTorch composes.
+//
+// The pack kernel (voxel_pack_kernel; it replaces no TPU kernel: XLA fuses
+// the same elementwise work into the sort's operands). One thread a point
+// reads its xyz, mask and rgb once and writes the key and the offset (and
+// colour) word: 16 to 20 bytes read, 8 to 12 written, memory-bound. Its
+// float32 arithmetic is PyTorch's, step by step: p = xyz * inv, floor,
+// frac = p - floor(p), (frac * 1024) truncated; the products and the
+// difference are written with __fmul_rn / __fsub_rn, so the compiler cannot
+// contract them into a fused multiply-add, which would change the bits.
+//
 // K2. One launch, no memset, and no serial run sums. In the ring-ICP pass
 // most rows lie in a few long runs (every voxel past a camera's 2048th goes
 // to its discard id), so a thread that sums a run row by row is a chain of
@@ -107,9 +134,12 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int MAX_CH = 16;
+constexpr int PACK_SENTINEL = INT_MAX;  // the key of an invalid point
 
 // ---------------------------------------------------------------------------
 // Shared by K1 and K2: one launch, a segmented reduction inside each tile,
@@ -531,6 +561,7 @@ constexpr int K1_ZERO_FLOATS = 16384;  // floats zeroed by a zero-only block
 // (epoch << 2) plus a state
 constexpr unsigned CS_AGG = 1;     // the tile's own count
 constexpr unsigned CS_PREFIX = 2;  // the count up to the tile's end
+constexpr unsigned CS_TOTAL = 3;   // PackedRows: the count of every run
 
 __device__ __forceinline__ void st_relaxed64(unsigned long long* p,
                                              unsigned long long v) {
@@ -565,6 +596,24 @@ __device__ __forceinline__ void stage_rows(float* sval, const float* src,
   cp_async_commit();
 }
 
+// K1's row sources (see the note at the top). FlagRows: rows [n, ch] and
+// flags [n] (nonzero: a run starts at the row) in memory.
+struct FlagRows {
+  const float* vals;
+  const uint8_t* flags;
+};
+// PackedRows: skey [n] the sorted keys (PACK_SENTINEL for an invalid point,
+// so those rows are a suffix), perm [n] the sort's permutation, off / col
+// [n] the pack kernel's words in the points' own order (col null: 7
+// channels, else 10), dims the grid's (nx, ny, nz), each at least 1.
+struct PackedRows {
+  const int* skey;
+  const long long* perm;
+  const int* off;
+  const int* col;
+  const int* dims;
+};
+
 // Block t < ntiles is tile t of K1_TILE rows (thread i holds rows i * RPT..
 // of the tile, RPT = K1_TILE / THREADS); the blocks after them zero a share
 // of the slots [n, capacity). A tile waits only for tiles before it, and
@@ -573,15 +622,15 @@ __device__ __forceinline__ void stage_rows(float* sval, const float* src,
 // and hint, one word for the launch; a word counts as published when it
 // carries this launch's tag (epoch << 2, epoch >= 1), so nothing resets
 // them between launches. xbuf/abuf: [ntiles][MAX_CH] f64.
-template <int THREADS>
+template <int THREADS, class Rows>
 __global__ void __launch_bounds__(THREADS, K1_SM_THREADS / THREADS)
-segsum_flags_kernel(const float* __restrict__ vals,
-                    const uint8_t* __restrict__ flags, int n, int ch,
-                    int capacity, int ntiles, float* __restrict__ out,
-                    int tag, unsigned long long* __restrict__ hint,
+segsum_flags_kernel(Rows src, int n, int ch, int capacity, int ntiles,
+                    float* __restrict__ out, int tag,
+                    unsigned long long* __restrict__ hint,
                     int* __restrict__ status,
                     unsigned long long* __restrict__ cstat,
                     double* __restrict__ xbuf, double* __restrict__ abuf) {
+  constexpr bool PACKED = std::is_same<Rows, PackedRows>::value;
   constexpr int RPT = K1_TILE / THREADS;  // rows per thread
   constexpr int WARPS = THREADS / 32;
   extern __shared__ float sval[];  // THREADS x (RPT * ch + 1)
@@ -592,15 +641,44 @@ segsum_flags_kernel(const float* __restrict__ vals,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t = blockIdx.x;
 
+  const unsigned long long hi_tag = (unsigned long long)(unsigned)tag << 32;
   if (t >= ntiles) {
-    // a zero-only block: its share of the slots past the last row's
-    const long long lo = (long long)min(n, capacity) * ch +
-                         (long long)(t - ntiles) * K1_ZERO_FLOATS;
-    const long long hi = min(lo + K1_ZERO_FLOATS, (long long)capacity * ch);
-    for (long long k = lo + tid; k < hi; k += THREADS) out[k] = 0.0f;
+    if constexpr (PACKED) {
+      // a zero-only block: its share of the slots [F, capacity), F the
+      // number of runs, which the tile that holds the last valid row
+      // publishes in cstat[ntiles] (no valid row: 0)
+      __shared__ int s_runs;
+      if (tid == 0) {
+        unsigned long long w = hi_tag | ((unsigned long long)CS_TOTAL << 32);
+        if (ntiles > 0 && __ldg(src.skey) != PACK_SENTINEL) {
+          do {
+            w = ld_relaxed64(cstat + ntiles);
+          } while ((unsigned)(w >> 32) != ((unsigned)tag | CS_TOTAL));
+        }
+        s_runs = (int)min((unsigned)w, (unsigned)capacity);
+      }
+      __syncthreads();
+      const long long lo = (long long)(t - ntiles) * K1_ZERO_FLOATS;
+      const long long hi = min(lo + K1_ZERO_FLOATS, (long long)capacity * ch);
+      for (long long k = max(lo, (long long)s_runs * ch) + tid; k < hi;
+           k += THREADS)
+        out[k] = 0.0f;
+    } else {
+      // a zero-only block: its share of the slots past the last row's
+      const long long lo = (long long)min(n, capacity) * ch +
+                           (long long)(t - ntiles) * K1_ZERO_FLOATS;
+      const long long hi = min(lo + K1_ZERO_FLOATS, (long long)capacity * ch);
+      for (long long k = lo + tid; k < hi; k += THREADS) out[k] = 0.0f;
+    }
     return;
   }
   const long long r0 = (long long)t * K1_TILE;
+  // PackedRows: the valid rows are a prefix of the array, so a tile whose
+  // first row is invalid holds no valid row: nothing to count, sum or zero,
+  // and no tile looks back into it (every later tile is one too)
+  if constexpr (PACKED) {
+    if (__ldg(src.skey + r0) == PACK_SENTINEL) return;
+  }
   const int rows = (int)min((long long)K1_TILE, (long long)n - r0);
   const int per = RPT * ch;  // floats of one thread's rows
   const int stride = per + 1;   // odd: no bank conflicts below
@@ -609,10 +687,11 @@ segsum_flags_kernel(const float* __restrict__ vals,
   // look-back. A later tile first learns whether any of its ids is below
   // capacity.
   const bool early = r0 <= capacity;
-  if (early) stage_rows<THREADS>(sval, vals + r0 * ch, rows * ch, per);
+  if constexpr (!PACKED) {
+    if (early) stage_rows<THREADS>(sval, src.vals + r0 * ch, rows * ch, per);
+  }
   // Has a tile before this one found its ids past capacity already? (The
   // answer arrives under the flags' loads.)
-  const unsigned long long hi_tag = (unsigned long long)(unsigned)tag << 32;
   const unsigned long long past = hi_tag |
                                   ((unsigned long long)CS_PREFIX << 32) |
                                   (unsigned)(capacity + 1);
@@ -620,18 +699,52 @@ segsum_flags_kernel(const float* __restrict__ vals,
   if (!early && tid == 0) seen = ld_relaxed64(hint);
 
   // the flags of this thread's rows: bit j of head, row j starts a run;
-  // bit j of run_end, the row after it does (or there is none)
+  // bit j of run_end, the row after it does (or there is none). PackedRows
+  // also: nv, the thread's rows that hold data (a prefix of its nj); last,
+  // which of them is the tile's last such row, or -1; boundary, whether the
+  // tile holds the array's last valid row.
   const int j0 = tid * RPT;
   const int nj = max(0, min(RPT, rows - j0));
   const long long i0 = r0 + j0;
   unsigned head = 0, run_end = 0;
-  for (int j = 0; j < nj; ++j)
-    if (flags[i0 + j] != 0) head |= 1u << j;
-  if (nj > 0) {
-    const bool next = i0 + nj >= n || flags[i0 + nj] != 0;
-    run_end = ((head >> 1) | (next ? 1u << (nj - 1) : 0u)) &
-              ((1u << nj) - 1u);
-    if (j0 + nj == rows) s_tail_cont = !next;
+  int nv = nj, last = -1;
+  bool boundary = false;
+  int key[RPT];  // PackedRows: the rows' sorted keys
+  if constexpr (PACKED) {
+    boundary = r0 + rows == n ||
+               __ldg(src.skey + r0 + rows) == PACK_SENTINEL;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      key[j] = j < nj ? __ldg(src.skey + i0 + j) : PACK_SENTINEL;
+    nv = 0;
+    if (nj > 0) {
+      const int next = i0 + nj < n ? __ldg(src.skey + i0 + nj)
+                                   : PACK_SENTINEL;
+      int prev = i0 > 0 ? __ldg(src.skey + i0 - 1) : -1;  // keys are >= 0
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int nk = j + 1 < nj ? key[min(j + 1, RPT - 1)] : next;
+        if (key[j] != PACK_SENTINEL) {
+          nv = j + 1;
+          if (key[j] != prev) head |= 1u << j;
+          if (nk != key[j]) run_end |= 1u << j;
+        }
+        prev = key[j];
+      }
+      if (nv > 0 && (nv < nj || next == PACK_SENTINEL || j0 + nj == rows))
+        last = nv - 1;
+      if (j0 + nj == rows)
+        s_tail_cont = nv == nj && !((run_end >> (nj - 1)) & 1u);
+    }
+  } else {
+    for (int j = 0; j < nj; ++j)
+      if (__ldg(src.flags + i0 + j) != 0) head |= 1u << j;
+    if (nj > 0) {
+      const bool next = i0 + nj >= n || __ldg(src.flags + i0 + nj) != 0;
+      run_end = ((head >> 1) | (next ? 1u << (nj - 1) : 0u)) &
+                ((1u << nj) - 1u);
+      if (j0 + nj == rows) s_tail_cont = !next;
+    }
   }
   // A tile whose ids are all past capacity leaves `hint` = (tag, its
   // number). Blocks start in index order, so a tile that reads it is a later
@@ -641,7 +754,14 @@ segsum_flags_kernel(const float* __restrict__ vals,
   if (!early &&
       __syncthreads_or((unsigned)(seen >> 32) == (unsigned)tag &&
                        t >= (int)(unsigned)seen)) {
-    if (tid == 0) st_relaxed64(cstat + t, past);
+    if (tid == 0) {
+      st_relaxed64(cstat + t, past);
+      // the runs in all number more than capacity: nothing to zero
+      if (boundary)
+        st_relaxed64(cstat + ntiles,
+                     hi_tag | ((unsigned long long)CS_TOTAL << 32) |
+                         (unsigned)(capacity + 1));
+    }
     return;
   }
   // flags before this thread in its warp, and the head flags' scan that
@@ -706,14 +826,19 @@ segsum_flags_kernel(const float* __restrict__ vals,
     if (lane == 0) {
       st_relaxed64(cstat + t, hi_tag | ((unsigned long long)CS_PREFIX << 32) |
                                   (unsigned)(before + total));
+      if (boundary)  // the zero-only blocks' F
+        st_relaxed64(cstat + ntiles,
+                     hi_tag | ((unsigned long long)CS_TOTAL << 32) |
+                         (unsigned)(before + total));
       s_excl = before;
     }
   }
   __syncthreads();
   const int before = s_excl;  // flags in the tiles before this one
 
-  // the slots no run can reach any more (see the note at the top)
-  {
+  // the slots no run can reach any more (see the note at the top; with
+  // PackedRows the zero-only blocks zero [F, capacity))
+  if (!PACKED) {
     const long long u_hi = (long long)before + ((long long)n - r0);
     const long long u_lo = u_hi - (rows - total);
     const long long a = min(u_lo, (long long)capacity) * ch;
@@ -728,7 +853,52 @@ segsum_flags_kernel(const float* __restrict__ vals,
     if (tid == 0) st_relaxed64(hint, hi_tag | (unsigned)t);
     return;
   }
-  if (!early) stage_rows<THREADS>(sval, vals + r0 * ch, rows * ch, per);
+  if constexpr (PACKED) {
+    // the thread's valid rows into its own slot of sval: the gathers first,
+    // all in flight, then the channels
+    long long p[RPT];
+    int o[RPT], c[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      if (j < nv) p[j] = __ldg(src.perm + i0 + j);
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      if (j < nv) {
+        o[j] = __ldg(src.off + p[j]);
+        c[j] = src.col != nullptr ? __ldg(src.col + p[j]) : 0;
+      }
+    }
+    const int ny = __ldg(src.dims + 1), nz = __ldg(src.dims + 2);
+    float* w = sval + tid * stride;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      if (j < nv) {
+        float* r = w + j * ch;
+        int ix = 0, iy = 0, iz = 0;
+        if (head & (1u << j)) {  // the voxel's indices, on its first row
+          const int q = key[j] / nz;
+          iz = key[j] - q * nz;
+          ix = q / ny;
+          iy = q - ix * ny;
+        }
+        r[0] = (float)ix;
+        r[1] = (float)iy;
+        r[2] = (float)iz;
+        r[3] = (float)((o[j] >> 20) & 1023);
+        r[4] = (float)((o[j] >> 10) & 1023);
+        r[5] = (float)(o[j] & 1023);
+        r[6] = 1.0f;
+        if (ch > 7) {
+          r[7] = (float)((c[j] >> 16) & 255);
+          r[8] = (float)((c[j] >> 8) & 255);
+          r[9] = (float)(c[j] & 255);
+        }
+      }
+    }
+  } else {
+    if (!early)
+      stage_rows<THREADS>(sval, src.vals + r0 * ch, rows * ch, per);
+  }
   cp_async_wait_all();
   __syncthreads();  // sval complete
 
@@ -744,7 +914,7 @@ segsum_flags_kernel(const float* __restrict__ vals,
     for (int u = 0; u < K2_CG; ++u) v[u] = 0.0;
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
-      if (j >= nj) break;
+      if (j >= (PACKED ? nv : nj)) break;
 #pragma unroll
       for (int u = 0; u < K2_CG; ++u) {
         if (head & (1u << j)) v[u] = 0.0;
@@ -777,13 +947,13 @@ segsum_flags_kernel(const float* __restrict__ vals,
     int id = id0;
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
-      if (j >= nj) break;
+      if (j >= (PACKED ? nv : nj)) break;
       if (head & (1u << j)) {
         has_head = true;
         ++id;
       }
       const bool end = run_end & (1u << j);
-      const bool tile_end = j0 + j == rows - 1;
+      const bool tile_end = PACKED ? j == last : j0 + j == rows - 1;
 #pragma unroll
       for (int u = 0; u < K2_CG; ++u) {
         if (head & (1u << j)) e[u] = 0.0;
@@ -842,6 +1012,50 @@ segsum_flags_kernel(const float* __restrict__ vals,
   }
 }
 
+// The pack kernel (see the note at the top): point i's key, PACK_SENTINEL
+// where mask[i] is 0, its offset word and, with rgb, its colour word.
+// inv: 1 / leaf; min_ijk: the valid points' least (floor(p)) per axis;
+// dims: (nx, ny, nz). The offset and colour words are made for every
+// point, as PyTorch makes them.
+constexpr int PACK_THREADS = 256;
+
+__global__ void __launch_bounds__(PACK_THREADS)
+voxel_pack_kernel(const float* __restrict__ xyz,
+                  const uint8_t* __restrict__ mask,
+                  const float* __restrict__ rgb,
+                  const float* __restrict__ inv_p,
+                  const int* __restrict__ min_ijk,
+                  const int* __restrict__ dims, int n, int* __restrict__ key,
+                  int* __restrict__ off, int* __restrict__ col) {
+  const long long i = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+  if (i >= n) return;
+  const float inv = __ldg(inv_p);
+  int f[3], q[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float p = __fmul_rn(__ldg(xyz + 3 * i + a), inv);
+    const float fl = floorf(p);
+    f[a] = (int)fl;
+    const int qa = (int)__fmul_rn(__fsub_rn(p, fl), 1024.0f);
+    q[a] = min(max(qa, 0), 1023);
+  }
+  int k = PACK_SENTINEL;
+  if (__ldg(mask + i) != 0) {
+    const int ny = __ldg(dims + 1), nz = __ldg(dims + 2);
+    k = ((f[0] - __ldg(min_ijk)) * ny + (f[1] - __ldg(min_ijk + 1))) * nz +
+        (f[2] - __ldg(min_ijk + 2));
+  }
+  key[i] = k;
+  off[i] = (q[0] << 20) | (q[1] << 10) | q[2];
+  if (rgb != nullptr) {
+    int c[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      c[a] = min(max((int)__ldg(rgb + 3 * i + a), 0), 255);
+    col[i] = (c[0] << 16) | (c[1] << 8) | c[2];
+  }
+}
+
 // K1's grid: the tiles, then the blocks that zero the slots [n, capacity)
 int k1_tiles(int n) { return (n + K1_TILE - 1) / K1_TILE; }
 int k1_zero_blocks(int n, int ch, int capacity) {
@@ -895,16 +1109,63 @@ int pcs_segsum_flags(const float* vals, const uint8_t* flags, int n, int ch,
   const size_t smem = k1_smem_bytes(ch);
   const int ntiles = k1_tiles(n);
   const int grid = ntiles + k1_zero_blocks(n, ch, capacity);
+  const FlagRows src{vals, flags};
   auto launch = [&](auto kernel, int threads) {
     const cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-        vals, flags, n, ch, capacity, ntiles, out, epoch << 2, hint, status,
-        cstat, xbuf, abuf);
+        src, n, ch, capacity, ntiles, out, epoch << 2, hint, status, cstat,
+        xbuf, abuf);
     return (int)cudaGetLastError();
   };
-  return k1_threads(ch) == 128 ? launch(segsum_flags_kernel<128>, 128)
-                               : launch(segsum_flags_kernel<256>, 256);
+  return k1_threads(ch) == 128
+             ? launch(segsum_flags_kernel<128, FlagRows>, 128)
+             : launch(segsum_flags_kernel<256, FlagRows>, 256);
+}
+
+// K1 on packed rows: skey [n] i32 sorted (PACK_SENTINEL last), perm [n]
+// i64, off [n] and col [n] i32 (col null: 7 channels, else 10), dims [3]
+// i32 (nx, ny, nz, each >= 1); out [capacity, 7 or 10]. Scratch and epoch
+// as pcs_segsum_flags's, which it may share in stream order, but cstat
+// [ntiles + 1]. One launch: the tiles, then the blocks that zero
+// [runs, capacity), each K1_ZERO_FLOATS floats of [0, capacity).
+int pcs_segsum_packed(const int* skey, const long long* perm, const int* off,
+                      const int* col, const int* dims, int n, int capacity,
+                      float* out, int epoch, unsigned long long* hint,
+                      int* status, unsigned long long* cstat, double* xbuf,
+                      double* abuf, void* stream) {
+  const int ch = col != nullptr ? 10 : 7;
+  if (n < 0 || capacity < 1 || epoch < 1 || epoch >= (1 << 29) ||
+      (long long)capacity * ch >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  constexpr int threads = 256;  // k1_threads(ch) for 7 and 10 channels
+  const size_t smem = k1_smem_bytes(ch);
+  const cudaError_t e =
+      allow_smem(segsum_flags_kernel<threads, PackedRows>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ntiles = k1_tiles(n);
+  const int grid = ntiles + k1_zero_blocks(0, ch, capacity);
+  const PackedRows src{skey, perm, off, col, dims};
+  segsum_flags_kernel<threads, PackedRows>
+      <<<grid, threads, smem, (cudaStream_t)stream>>>(
+          src, n, ch, capacity, ntiles, out, epoch << 2, hint, status, cstat,
+          xbuf, abuf);
+  return (int)cudaGetLastError();
+}
+
+// The pack kernel: xyz [n, 3] f32, mask [n] u8, rgb [n, 3] f32 or null;
+// inv [1] f32, min_ijk [3] and dims [3] i32 on the device; key and off [n]
+// i32, col [n] i32 (written where rgb is given). One launch (none for n 0).
+int pcs_voxel_pack(const float* xyz, const uint8_t* mask, const float* rgb,
+                   const float* inv, const int* min_ijk, const int* dims,
+                   int n, int* key, int* off, int* col, void* stream) {
+  if (n < 0 || (rgb != nullptr && col == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  voxel_pack_kernel<<<(n + PACK_THREADS - 1) / PACK_THREADS, PACK_THREADS, 0,
+                      (cudaStream_t)stream>>>(xyz, mask, rgb, inv, min_ijk,
+                                              dims, n, key, off, col);
+  return (int)cudaGetLastError();
 }
 
 int pcs_segsum_flags_grid(int n, int ch, int capacity) {

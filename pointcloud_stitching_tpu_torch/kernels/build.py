@@ -143,6 +143,14 @@ _SIGNATURES = {
     # vals, flags(u8), n, ch, capacity, out, epoch, hint(u64), status(i32),
     # cstat(u64), xbuf(f64), abuf(f64), stream
     "pcs_segsum_flags": (_P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P),
+    # skey(i32), perm(i64), off(i32), col(i32, or null), dims(i32), n,
+    # capacity, out, epoch, hint(u64), status(i32), cstat(u64), xbuf(f64),
+    # abuf(f64), stream
+    "pcs_segsum_packed": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P,
+                          _P, _P),
+    # xyz, mask(u8), rgb (or null), inv, min_ijk(i32), dims(i32), n, key,
+    # off, col (or null), stream
+    "pcs_voxel_pack": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     # vals, seg(i32), n, ch, capacity, out, state(i32), xbuf(f64),
     # abuf(f64), stream
     "pcs_segsum_sorted": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),

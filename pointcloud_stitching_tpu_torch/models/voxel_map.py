@@ -34,9 +34,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.segment_reduce import segment_sum_from_flags
+from ..kernels.segment_reduce import SENTINEL as _SENTINEL
+from ..kernels.segment_reduce import run_starts, segment_sum_from_flags
 from ..ops.icp import ICPResult, icp
-from ..ops.voxel import _SENTINEL, _prev
 from ..utils.platform import platform_device
 from ..utils.types import PointCloud, scalar
 
@@ -171,7 +171,7 @@ def _merge_rows(vmap: VoxelMap, cloud: PointCloud, decay, min_weight):
 
     sk1 = skey >> 32
     valid = sk1 != _SENTINEL
-    flags = (skey != _prev(skey)) & valid
+    flags = run_starts(skey, valid)
     # per-axis indices on each run's first row only (flag-masked: one
     # contribution survives the sum); they are <= 65534, exact in f32
     sk1v = torch.where(valid, sk1, 0)

@@ -16,7 +16,11 @@ the JAX package:
   * packed: when the scene fits 2^30 cells, 65536 per axis, and
     leaf <= 0.03 m, sort one int32 linearised key with 3x10-bit quantised
     in-voxel offsets as payload; every summed channel is a small integer,
-    so the sums are exact and the centroid is quantised at leaf/2048;
+    so the sums are exact and the centroid is quantised at leaf/2048. One
+    cloud goes through ``segment_sum_packed`` (on a card: the pack kernel,
+    the sort and K1, which builds the rows itself); a camera batch through
+    ``packed_rows``' composition and K2. The format, its words and their
+    decoding (``finalize_packed``) live in ``kernels/segment_reduce.py``;
   * exact: sort the (packed (ix, iy), iz) key pair — built here as one
     int64 key (k1 << 32) | kz — with the float coordinates as payload.
 
@@ -32,12 +36,13 @@ import numbers
 import numpy as np
 import torch
 
-from ..kernels.segment_reduce import (segment_sum_from_flags,
-                                      segment_sum_sorted)
+from ..kernels.segment_reduce import SENTINEL as _SENTINEL
+from ..kernels.segment_reduce import (finalize_packed, packed_rows,
+                                      run_starts, segment_sum_from_flags,
+                                      segment_sum_packed, segment_sum_sorted)
 from ..utils.profiling import annotate
 from ..utils.types import PointCloud, scalar
 
-_SENTINEL = 2 ** 31 - 1
 _PACK_MAX_LEAF = 0.03
 _PACK_MAX_CELLS = float(2 ** 30)
 
@@ -53,12 +58,18 @@ def packed_impossible(leaf) -> bool:
 
 def voxel_indices(xyz: torch.Tensor, mask: torch.Tensor, leaf):
     """Per-axis int32 voxel indices (PCL convention), sentinel for invalid."""
-    inv = 1.0 / scalar(leaf, xyz)
+    return _indices_and_min(xyz, mask, 1.0 / scalar(leaf, xyz))[0]
+
+
+def _indices_and_min(xyz: torch.Tensor, mask: torch.Tensor,
+                     inv: torch.Tensor):
+    """``voxel_indices`` at ``inv`` = 1 / leaf, and the valid points' least
+    floor(xyz * inv) per axis ([..., 1, 3], sentinel where none is valid)."""
     f = torch.floor(xyz * inv).to(torch.int32)
     fm = torch.where(mask[..., None], f, _SENTINEL)
     min_ijk = fm.amin(dim=-2, keepdim=True)
     ijk = f - min_ijk
-    return torch.where(mask[..., None], ijk, _SENTINEL)
+    return torch.where(mask[..., None], ijk, _SENTINEL), min_ijk
 
 
 def _extents(ijk: torch.Tensor) -> torch.Tensor:
@@ -66,61 +77,6 @@ def _extents(ijk: torch.Tensor) -> torch.Tensor:
     valid = ijk[..., 0] != _SENTINEL
     mx = torch.where(valid[..., None], ijk, -1).amax(dim=-2)
     return mx + 1  # all-invalid cloud -> extent 0
-
-
-def _prev(a: torch.Tensor) -> torch.Tensor:
-    """a shifted right by one along the last axis, -1 in front."""
-    return torch.cat([torch.full_like(a[..., :1], -1), a[..., :-1]], dim=-1)
-
-
-def _sorted_segments_packed(pc: PointCloud, leaf, ijk: torch.Tensor):
-    """Packed sort: linearised key + quantised offsets (+ 8-bit RGB).
-
-    Returns (flags, vals [..., N, 7 or 10], min_ijk) with integer channels
-    [ix·flag, iy·flag, iz·flag, q0, q1, q2, 1] (+ [r, g, b]).
-    """
-    xyz, mask = pc.xyz, pc.mask
-    inv = 1.0 / scalar(leaf, xyz)
-    ext = _extents(ijk)
-    ny = torch.clamp(ext[..., 1:2], min=1)
-    nz = torch.clamp(ext[..., 2:3], min=1)
-    key = (ijk[..., 0] * ny + ijk[..., 1]) * nz + ijk[..., 2]
-    key = torch.where(mask, key, _SENTINEL)
-
-    # in-voxel offsets in units of leaf/1024 (floor of the f32 fraction)
-    p = xyz * inv
-    frac = p - torch.floor(p)
-    oq = torch.clamp((frac * 1024.0).to(torch.int32), 0, 1023)
-    off = (oq[..., 0] << 20) | (oq[..., 1] << 10) | oq[..., 2]
-
-    skey, perm = torch.sort(key, dim=-1)
-    soff = off.gather(-1, perm)
-    valid = skey != _SENTINEL
-
-    sk = torch.where(valid, skey, 0)
-    iz = sk % nz
-    t = sk // nz
-    iy = t % ny
-    ix = t // ny
-    fm = torch.where(mask[..., None], torch.floor(p).to(torch.int32),
-                     _SENTINEL)
-    min_ijk = fm.amin(dim=-2, keepdim=True)
-
-    flags = (skey != _prev(skey)) & valid
-    f = flags.to(torch.float32)
-    q = torch.stack([(soff >> 20) & 1023, (soff >> 10) & 1023, soff & 1023],
-                    dim=-1).to(torch.float32)
-    chans = [torch.stack([ix, iy, iz], dim=-1).to(torch.float32) * f[..., None],
-             q, torch.ones_like(f)[..., None]]
-    if pc.rgb is not None:
-        rq = torch.clamp(pc.rgb.to(torch.int32), 0, 255)
-        rgb_packed = (rq[..., 0] << 16) | (rq[..., 1] << 8) | rq[..., 2]
-        srgb = rgb_packed.gather(-1, perm)
-        chans.append(torch.stack([(srgb >> 16) & 255, (srgb >> 8) & 255,
-                                  srgb & 255], dim=-1).to(torch.float32))
-    vals = torch.cat(chans, dim=-1)
-    vals = torch.where(valid[..., None], vals, 0.0)
-    return flags, vals, min_ijk
 
 
 def _sorted_segments(pc: PointCloud, leaf):
@@ -140,7 +96,7 @@ def _sorted_segments(pc: PointCloud, leaf):
     sxyz = xyz.gather(-2, idx3)
 
     valid = (skey >> 32) != _SENTINEL
-    flags = (skey != _prev(skey)) & valid
+    flags = run_starts(skey, valid)
     chans = [sxyz, torch.ones_like(sxyz[..., :1])]
     if pc.rgb is not None:
         chans.append(pc.rgb.gather(-2, idx3))
@@ -158,22 +114,6 @@ def _finalize(sums: torch.Tensor, has_rgb: bool) -> PointCloud:
     if has_rgb:
         out_rgb = torch.where(out_mask[..., None], sums[..., 4:7] / denom, 0.0)
     return PointCloud(xyz=out_xyz, mask=out_mask, rgb=out_rgb)
-
-
-def _finalize_packed(sums: torch.Tensor, min_ijk: torch.Tensor, leaf,
-                     has_rgb: bool = False) -> PointCloud:
-    """Centroids from integer-channel sums: (base + (Σq/n + ½)/1024)·leaf."""
-    counts = sums[..., 6]
-    out_mask = counts > 0.0
-    denom = torch.clamp(counts, min=1.0)[..., None]
-    base = sums[..., :3] + min_ijk.to(torch.float32)
-    mean_q = sums[..., 3:6] / denom
-    xyz = (base + (mean_q + 0.5) * (1.0 / 1024.0)) * scalar(leaf, sums)
-    rgb = None
-    if has_rgb:
-        rgb = torch.where(out_mask[..., None], sums[..., 7:10] / denom, 0.0)
-    return PointCloud(xyz=torch.where(out_mask[..., None], xyz, 0.0),
-                      mask=out_mask, rgb=rgb)
 
 
 def _flags_to_seg(flags: torch.Tensor, capacity: int) -> torch.Tensor:
@@ -229,7 +169,8 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
 
     has_rgb = pc.rgb is not None
     if packed == "auto" and not packed_impossible(leaf):
-        ijk = voxel_indices(pc.xyz, pc.mask, leaf)
+        inv = 1.0 / scalar(leaf, pc.xyz)
+        ijk, min_ijk = _indices_and_min(pc.xyz, pc.mask, inv)
         ext = _extents(ijk)
         cells = ext.to(torch.float32).prod(dim=-1)
         # per-axis bound <= 2^16 keeps the index channels exact
@@ -242,9 +183,15 @@ def voxel_downsample(pc: PointCloud, leaf, capacity: int,
         with annotate("pcs.sync"):
             fits = bool(fits)  # the one host sync of the pass
         if fits:
-            flags, vals, min_ijk = _sorted_segments_packed(pc, leaf, ijk)
-            return _finalize_packed(reduce_fn(flags, vals), min_ijk, leaf,
-                                    has_rgb)
+            dims = torch.clamp(ext, min=1)
+            if batched:
+                sums = _reduce_batched(*packed_rows(
+                    pc.xyz, pc.mask, pc.rgb, inv, min_ijk, dims), capacity,
+                    impl)
+            else:
+                sums = segment_sum_packed(pc.xyz, pc.mask, pc.rgb, inv,
+                                          min_ijk, dims, capacity, impl=impl)
+            return finalize_packed(sums, min_ijk, leaf, has_rgb)
     flags, vals = _sorted_segments(pc, leaf)
     return _finalize(reduce_fn(flags, vals), has_rgb)
 

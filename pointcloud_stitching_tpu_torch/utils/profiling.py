@@ -9,7 +9,9 @@ the device's clock:
 
   pcs.prepare, pcs.icp (> pcs.icp.iter, or pcs.icp.graph around the
   replay of the captured stage), pcs.output, pcs.sync (each blocking
-  device-to-host read of the step); pcs.client.pace, .snapshot,
+  device-to-host read of the step), pcs.voxel.k1_packed (the global voxel
+  pass's packed route on the card: pack kernel, sort, K1); pcs.client.pace,
+  .snapshot,
   .h2d, .dispatch, .sync, .deliver (``MulticameraClient.run``).
 """
 from __future__ import annotations

@@ -24,8 +24,9 @@ from pointcloud_stitching_tpu_torch.kernels.nn_pallas import (
     prepare_ref_batched)
 from pointcloud_stitching_tpu_torch.kernels.patch_gather import patch_gather
 from pointcloud_stitching_tpu_torch.models import tsdf as TM
-from pointcloud_stitching_tpu_torch.ops import icp_converge
+from pointcloud_stitching_tpu_torch.ops import icp_converge, voxel_downsample
 from pointcloud_stitching_tpu_torch.utils import prng
+from pointcloud_stitching_tpu_torch.utils.types import scalar
 from pointcloud_stitching_tpu_torch.kernels import prng as KP
 from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
     k1_grid, segment_sum_from_flags, segment_sum_sorted)
@@ -318,6 +319,181 @@ def test_flags_segment_kernel_on_two_streams(cuda_device):
         assert torch.equal(out, segment_sum_from_flags(v, f, c, impl="torch"))
 
 
+# --- the global voxel pass's packed route: pack kernel, sort, K1 ---------
+
+PACKED_CASES = ["cloud", "saturated", "all_invalid", "one_point",
+                "n_odd", "all_valid", "one_voxel"]
+
+
+def _packed_case(case: str, dev, with_rgb: bool):
+    """(PointCloud [N], leaf, capacity) for one case of the packed route."""
+    rng = np.random.default_rng(PACKED_CASES.index(case) + 140)
+    n = {"n_odd": 1024 * 37 + 333, "all_valid": 300_000,
+         "one_point": 5000}.get(case, 200_000)
+    xyz = rng.uniform(-0.7, 0.7, (n, 3)).astype(np.float32)
+    xyz[:, 2] += 1.3
+    mask = rng.random(n) > 0.6              # a sorted suffix of 60% invalid
+    cap = 1 << 18
+    if case == "saturated":                 # runs past the capacity drop
+        cap = 5000
+    elif case == "all_invalid":
+        mask[:] = False
+    elif case == "one_point":
+        mask[:] = False
+        mask[777] = True
+    elif case == "all_valid":               # no invalid suffix at all
+        mask[:] = True
+    elif case == "one_voxel":               # one run over every tile
+        xyz = (rng.uniform(0.0, 0.0099, (n, 3)) + 0.5).astype(np.float32)
+    xyz[~mask] = 0.0
+    rgb = (rng.integers(0, 256, (n, 3)).astype(np.float32) if with_rgb
+           else None)
+    pc = P.PointCloud(xyz=torch.from_numpy(xyz).to(dev),
+                      mask=torch.from_numpy(mask).to(dev),
+                      rgb=None if rgb is None else
+                      torch.from_numpy(rgb).to(dev))
+    return pc, 0.01, cap
+
+
+def _packed_args(pc, leaf):
+    """``segment_sum_packed``'s inputs as ``voxel_downsample`` makes them."""
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    inv = 1.0 / scalar(leaf, pc.xyz)
+    ijk, min_ijk = V._indices_and_min(pc.xyz, pc.mask, inv)
+    dims = torch.clamp(V._extents(ijk), min=1)
+    return (pc.xyz, pc.mask, pc.rgb, inv, min_ijk, dims)
+
+
+def _nan_junk(dev, *shape):
+    """Fill freed blocks with NaN, so a slot that a kernel leaves unwritten
+    cannot pass for a zero."""
+    junk = [torch.full(shape, float("nan"), device=dev) for _ in range(2)]
+    del junk
+
+
+def _assert_packed_route_equals_composition(pc, leaf, cap, dev):
+    """The card's route against ``impl='torch'`` bit for bit: the pack
+    kernel's words, the sums (one pack launch and one K1 launch, no host
+    sync), and the finalised cloud."""
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+        segment_sum_packed, voxel_pack)
+    args = _packed_args(pc, leaf)
+    got_w = voxel_pack(*args, impl="cuda")
+    want_w = voxel_pack(*args, impl="torch")
+    for a, b, name in zip(got_w, want_w, ("key", "off", "col")):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    _nan_junk(dev, cap, 10)
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = segment_sum_packed(*args, cap, impl="auto")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert dict(kb.LAUNCHES) == {"voxel_pack": 1,
+                                 "segment_sum_from_keys": 1}
+    want = segment_sum_packed(*args, cap, impl="torch")
+    assert torch.equal(got, want)
+    a = voxel_downsample(pc, leaf, capacity=cap, impl="auto")
+    b = voxel_downsample(pc, leaf, capacity=cap, impl="torch")
+    for name in ("xyz", "mask", "rgb"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert (x is None and y is None) or torch.equal(x, y), name
+    return got
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_route_equals_the_composition(cuda_device, case, with_rgb):
+    """Capacity below the occupied voxels, no valid point, one, a length
+    that is no multiple of 1024, no invalid suffix, one run over every
+    tile: the kernels' route gives the composition's bits, and every slot
+    past the last run reads 0."""
+    pc, leaf, cap = _packed_case(case, cuda_device, with_rgb)
+    got = _assert_packed_route_equals_composition(pc, leaf, cap, cuda_device)
+    runs = int((got[:, 6] > 0).sum())
+    assert not bool(got[runs:].any())
+    if case == "saturated":
+        assert runs == cap
+    elif case in ("all_invalid", "one_point", "one_voxel"):
+        assert runs == {"all_invalid": 0}.get(case, 1)
+
+
+def _bench_global_pass_input(name: str, seed: int, dev):
+    """The cloud that reaches the global voxel pass in the first frame of a
+    benchmark cell's configuration (its rig, scene and colour at ``seed``),
+    with its leaf and capacity."""
+    sys.path.insert(0, REPO)
+    from benchmark import harness, scene
+    from pointcloud_stitching_tpu_torch.models import stitcher
+    cfg = harness.config(name)
+    rig = scene.make_rig(cfg, seed)
+    frames = scene.render_cycle(cfg, rig, seed, dev)
+    colors = (scene.render_color(cfg, rig, seed, dev)
+              if scene.has_color(cfg) else None)
+    ctx = harness.Context(cell=name, cfg=cfg, traffic={}, seed=seed,
+                          seconds=0.0, trace=False, device=dev, t_start=0.0)
+    pipe = ctx.pipeline(rig.calib)
+    st = cfg["stitch"]
+    seen = []
+    real = stitcher.voxel_downsample
+
+    def spy(pc, leaf, capacity, *a, **kw):
+        if capacity == st["out_capacity"] and pc.xyz.dim() == 2:
+            seen.append(P.PointCloud(
+                xyz=pc.xyz.clone(), mask=pc.mask.clone(),
+                rgb=None if pc.rgb is None else pc.rgb.clone()))
+        return real(pc, leaf, capacity, *a, **kw)
+
+    stitcher.voxel_downsample = spy
+    try:
+        pipe(frames[0], None if colors is None else colors[0])
+    finally:
+        stitcher.voxel_downsample = real
+    (pc,) = seen
+    return pc, st["out_voxel_leaf"], st["out_capacity"]
+
+
+@pytest.mark.parametrize("seed", [7, 2026101822])
+@pytest.mark.parametrize("name", ["rig8_ring_icp", "rig8_ring_icp_color"])
+def test_packed_route_on_the_benchmark_frames(cuda_device, name, seed):
+    """The global pass of the benchmark's depth and XYZRGB rigs at 1 cm
+    (8 × 848×480, cropped): the route equals the composition bit for bit."""
+    pc, leaf, cap = _bench_global_pass_input(name, seed, cuda_device)
+    assert int(pc.mask.sum()) > 100_000
+    assert (pc.rgb is not None) == name.endswith("color")
+    _assert_packed_route_equals_composition(pc, leaf, cap, cuda_device)
+
+
+def test_packed_route_over_100_calls_and_on_two_streams(cuda_device):
+    """100 calls in a row on one stream (the look-back words of each call
+    carry its own epoch) and calls on two streams at once each give the
+    composition's bits."""
+    from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+        segment_sum_packed)
+    cases = [_packed_case(c, cuda_device, rgb) for c, rgb in
+             (("cloud", False), ("saturated", True))]
+    ins = [(_packed_args(pc, leaf), cap) for pc, leaf, cap in cases]
+    wants = [segment_sum_packed(*a, cap, impl="torch") for a, cap in ins]
+    for i in range(100):
+        a, cap = ins[i % 2]
+        assert torch.equal(segment_sum_packed(*a, cap, impl="cuda"),
+                           wants[i % 2]), i
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in ins]
+    for st in streams:
+        st.wait_stream(main)
+    outs = []
+    for _ in range(5):
+        for st, (a, cap) in zip(streams, ins):
+            with torch.cuda.stream(st):
+                outs.append(segment_sum_packed(*a, cap, impl="cuda"))
+    torch.cuda.synchronize()
+    for k, out in enumerate(outs):
+        assert torch.equal(out, wants[k % 2]), k
+
+
 def _map_clouds(rng, dev, n, with_rgb, shift):
     """A cloud of ``n`` points in a 0.8 m cube moved by ``shift`` (+ uint8
     colour), on the card."""
@@ -514,8 +690,8 @@ def test_pipeline_kernels_match_plain_and_are_launched(cuda_device):
         torch.cuda.synchronize()
         outs[impl] = (out, dict(kb.LAUNCHES))
     (a, la), (b, lb) = outs["auto"], outs["torch"]
-    assert la == {"nn_batched_prepared": 6, "segment_sum_from_flags": 2,
-                  "segment_sum_sorted": 2}
+    assert la == {"nn_batched_prepared": 6, "segment_sum_from_keys": 2,
+                  "segment_sum_sorted": 2, "voxel_pack": 2}
     assert not lb
     assert torch.equal(a.extrinsics, b.extrinsics)
     assert torch.equal(a.cloud.mask, b.cloud.mask)
@@ -798,8 +974,9 @@ def test_stream_client_on_the_card(cuda_device, color):
                    on_frame=lambda i, o: outs.append(o))
         torch.cuda.synchronize()
         assert dict(kb.LAUNCHES) == {"nn_batched_prepared": 50,
-                                     "segment_sum_from_flags": 10,
-                                     "segment_sum_sorted": 10}
+                                     "segment_sum_from_keys": 10,
+                                     "segment_sum_sorted": 10,
+                                     "voxel_pack": 10}
         assert all(t.is_pinned() for st in client._stage_ring
                    for t in st.host.values() if t is not None)
         assert len(outs) == 10

@@ -204,7 +204,8 @@ def test_replays_equal_the_eager_stage_over_100_frames(cuda_device, mode,
         if impl == "auto":
             assert counts == {"nn_batched_prepared": 5,
                               "segment_sum_sorted": 1,
-                              "segment_sum_from_flags": 1}, i
+                              "segment_sum_from_keys": 1,
+                              "voxel_pack": 1}, i
         else:
             assert not counts
     assert graph._icp_stage.graph is not first

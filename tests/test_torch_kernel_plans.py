@@ -102,12 +102,14 @@ def test_lookback_scratch_epochs_and_growth():
     """K1's epochs count up from 1 per scratch, a scratch is kept per
     (kernel, device, stream) and replaced by a larger, clean one when the
     tile count outgrows it, and the words are zeroed before an epoch could
-    come round again."""
+    come round again. K1's count words hold one more, the run count that
+    K1 on packed rows publishes."""
     dev = torch.device("cpu")
     SR._SCRATCH.clear()
     a = SR._lookback_scratch("k1", dev, 0, 10)
     assert a.tiles == 1024 and a.state.numel() == a.tiles + 3
-    assert a.cstat.numel() == a.tiles and a.part.shape == (2, a.tiles, 16)
+    assert a.cstat.numel() == a.tiles + 1
+    assert a.part.shape == (2, a.tiles, 16)
     assert [a.next_epoch() for _ in range(3)] == [1, 2, 3]
     assert SR._lookback_scratch("k1", dev, 0, 1024) is a
     assert SR._lookback_scratch("k1", dev, 7, 10) is not a      # a stream

@@ -20,6 +20,9 @@ from pointcloud_stitching_tpu.ops.icp import _trim_weights as jax_trim
 from pointcloud_stitching_tpu.utils.config import StitchConfig as JConfig
 import pointcloud_stitching_tpu_torch.ops as T
 from pointcloud_stitching_tpu_torch import PointCloud, StitchConfig
+from pointcloud_stitching_tpu_torch.kernels.segment_reduce import (
+    SENTINEL, finalize_packed, packed_rows, run_starts, segment_sum_from_flags,
+    segment_sum_from_keys, segment_sum_packed, segment_sum_plain, voxel_pack)
 from pointcloud_stitching_tpu_torch.ops.icp import _trim_weights
 from pointcloud_stitching_tpu_torch.utils.convert import (
     extrinsics_from_numpy, intrinsics_from_numpy)
@@ -269,6 +272,190 @@ def test_voxel_batched_flat_ids_never_decrease(monkeypatch, packed):
     assert (n(got.mask).sum(-1)[[1, 3]] == 256).all()     # saturated
     atol = 1e-6 if packed == "auto" else 1e-5
     np.testing.assert_allclose(n(got.xyz), n(want.xyz), atol=atol)
+
+
+def _old_packed_pass(pc, leaf, capacity):
+    """The packed branch of one cloud as the port composed it before the
+    global pass's rows were built in K1: voxel indices, then the extents,
+    min_ijk and the offsets all worked out again from the points."""
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    SENT = V._SENTINEL
+    ijk = V.voxel_indices(pc.xyz, pc.mask, leaf)
+    inv = 1.0 / torch.tensor(leaf, dtype=torch.float32)
+    ext = V._extents(ijk)
+    ny = torch.clamp(ext[..., 1:2], min=1)
+    nz = torch.clamp(ext[..., 2:3], min=1)
+    key = (ijk[..., 0] * ny + ijk[..., 1]) * nz + ijk[..., 2]
+    key = torch.where(pc.mask, key, SENT)
+    p = pc.xyz * inv
+    frac = p - torch.floor(p)
+    oq = torch.clamp((frac * 1024.0).to(torch.int32), 0, 1023)
+    off = (oq[..., 0] << 20) | (oq[..., 1] << 10) | oq[..., 2]
+    skey, perm = torch.sort(key, dim=-1)
+    soff = off.gather(-1, perm)
+    valid = skey != SENT
+    sk = torch.where(valid, skey, 0)
+    iz, t_ = sk % nz, sk // nz
+    iy, ix = t_ % ny, t_ // ny
+    fm = torch.where(pc.mask[..., None], torch.floor(p).to(torch.int32), SENT)
+    min_ijk = fm.amin(dim=-2, keepdim=True)
+    flags = run_starts(skey, valid)
+    f = flags.to(torch.float32)
+    q = torch.stack([(soff >> 20) & 1023, (soff >> 10) & 1023, soff & 1023],
+                    dim=-1).to(torch.float32)
+    chans = [torch.stack([ix, iy, iz], -1).to(torch.float32) * f[..., None],
+             q, torch.ones_like(f)[..., None]]
+    if pc.rgb is not None:
+        rq = torch.clamp(pc.rgb.to(torch.int32), 0, 255)
+        srgb = ((rq[..., 0] << 16) | (rq[..., 1] << 8) | rq[..., 2]).gather(
+            -1, perm)
+        chans.append(torch.stack([(srgb >> 16) & 255, (srgb >> 8) & 255,
+                                  srgb & 255], -1).to(torch.float32))
+    vals = torch.where(valid[..., None], torch.cat(chans, -1), 0.0)
+    seg = torch.cumsum(flags.to(torch.int32), dim=0) - 1
+    sums = segment_sum_plain(vals, seg, capacity)
+    return sums, finalize_packed(sums, min_ijk, leaf, pc.rgb is not None)
+
+
+def _packed_args(pc, leaf):
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    inv = 1.0 / torch.tensor(leaf, dtype=torch.float32)
+    ijk, min_ijk = V._indices_and_min(pc.xyz, pc.mask, inv)
+    dims = torch.clamp(V._extents(ijk), min=1)
+    return inv, min_ijk, dims
+
+
+@pytest.mark.parametrize("rgb", [False, True])
+@pytest.mark.parametrize("case", ["cloud", "saturated", "all_invalid",
+                                  "one_point"])
+def test_segment_sum_packed_plain_equals_composition_and_jax(rng, case, rgb):
+    """The plain ``segment_sum_packed`` equals ``packed_rows`` summed by
+    ``segment_sum_from_flags`` bit for bit, and its centroids the JAX
+    package's packed pass."""
+    xyz, mask, colors = _voxel_inputs(rng, False, rgb)
+    if case == "all_invalid":
+        mask[:] = False
+    elif case == "one_point":
+        mask[:] = False
+        mask[1234] = True
+    cap = 64 if case == "saturated" else 4096
+    pc = PointCloud(xyz=t(xyz), mask=t(mask),
+                    rgb=None if colors is None else t(colors))
+    args = (pc.xyz, pc.mask, pc.rgb, *_packed_args(pc, 0.02))
+    got = segment_sum_packed(*args, cap)
+    flags, vals = packed_rows(*args)
+    assert torch.equal(got, segment_sum_from_flags(vals, flags, cap,
+                                                   impl="torch"))
+    assert got.shape == (cap, 10 if rgb else 7)
+    want = J.voxel_downsample(
+        JPointCloud(xyz=jnp.asarray(xyz), mask=jnp.asarray(mask),
+                    rgb=None if colors is None else jnp.asarray(colors)),
+        0.02, capacity=cap, impl="xla", packed="auto")
+    out = T.voxel_downsample(pc, 0.02, capacity=cap)
+    np.testing.assert_array_equal(n(out.mask), n(want.mask))
+    np.testing.assert_allclose(n(out.xyz), n(want.xyz), atol=1e-6)
+    if rgb:
+        np.testing.assert_allclose(n(out.rgb), n(want.rgb), atol=1e-4)
+
+
+@pytest.mark.parametrize("rgb", [False, True])
+@pytest.mark.parametrize("case", ["cloud", "saturated", "all_invalid"])
+def test_segment_sum_from_keys_plain_sums_the_sorted_words(rng, case, rgb):
+    """K1 on packed rows, plain: the pack's words sorted by key and summed
+    per run give ``segment_sum_packed``'s bits, and each run's rows sum to
+    its count and offsets; the CPU refuses the kernel."""
+    xyz, mask, colors = _voxel_inputs(rng, False, rgb)
+    if case == "all_invalid":
+        mask[:] = False
+    cap = 64 if case == "saturated" else 4096
+    pc = PointCloud(xyz=t(xyz), mask=t(mask),
+                    rgb=None if colors is None else t(colors))
+    args = (pc.xyz, pc.mask, pc.rgb, *_packed_args(pc, 0.02))
+    key, off, col = voxel_pack(*args)
+    skey, perm = torch.sort(key)
+    dims = args[-1]
+    got = segment_sum_from_keys(skey, perm, off, col, dims, cap)
+    assert torch.equal(got, segment_sum_packed(*args, cap))
+    valid = skey != SENTINEL
+    runs = int(run_starts(skey, valid).sum())
+    assert int((got[:, 6] > 0).sum()) == min(runs, cap)
+    if case != "saturated":
+        assert float(got[:, 6].sum()) == int(pc.mask.sum())
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        segment_sum_from_keys(skey, perm, off, col, dims, cap, impl="cuda")
+
+
+@pytest.mark.parametrize("rgb", [False, True])
+@pytest.mark.parametrize("cap", [100, 4096])
+def test_min_ijk_and_extents_passed_on_equal_them_recomputed(rng, cap, rgb):
+    """The packed pass computes min_ijk and the extents once and hands them
+    on: the sums and the cloud are those of the composition that worked
+    them out again, bit for bit (saturated and not)."""
+    xyz, mask, colors = _voxel_inputs(rng, False, rgb)
+    xyz += np.float32(0.37)                 # min_ijk away from the origin
+    pc = PointCloud(xyz=t(xyz), mask=t(mask),
+                    rgb=None if colors is None else t(colors))
+    want_sums, want = _old_packed_pass(pc, 0.02, cap)
+    got_sums = segment_sum_packed(pc.xyz, pc.mask, pc.rgb,
+                                  *_packed_args(pc, 0.02), cap)
+    got = T.voxel_downsample(pc, 0.02, capacity=cap)
+    assert torch.equal(got_sums, want_sums)
+    for name in ("xyz", "mask", "rgb"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("impl", ["auto", "torch", "cuda"])
+@pytest.mark.parametrize("card", [False, True], ids=["cpu", "card"])
+@pytest.mark.parametrize("batched", [False, True])
+def test_packed_route_rule(monkeypatch, batched, card, impl):
+    """Which packed route a pass takes: one cloud on a card (``impl``
+    'auto' or 'cuda') takes the pack kernel and K1 on packed rows, inside
+    the span ``pcs.voxel.k1_packed``; a camera batch always the composition
+    and K2; the CPU and 'torch' the plain composition. ``card`` stands in
+    for CUDA tensors: the kernel steps are replaced by their plain
+    versions, which record that they ran."""
+    from pointcloud_stitching_tpu_torch.kernels import segment_reduce as SR
+    from pointcloud_stitching_tpu_torch.ops import voxel as V
+    rng = np.random.default_rng(81)
+    xyz, mask, _ = _voxel_inputs(rng, batched, False)
+    pc = PointCloud(xyz=t(xyz), mask=t(mask))
+    ran = []
+    real_use = SR.use_kernel
+
+    def use_kernel(impl_, x):
+        return impl_ != "torch" if card else real_use(impl_, x)
+
+    def packed_k1(xyz_, mask_, rgb_, inv, min_ijk, dims, capacity):
+        ran.append("k1_packed")
+        return SR.segment_sum_packed(xyz_, mask_, rgb_, inv, min_ijk, dims,
+                                     capacity, impl="torch")
+
+    def k2(vals, seg, capacity, impl="auto"):
+        ran.append("k2" if use_kernel(impl, vals) else "k2_plain")
+        return SR.segment_sum_sorted(vals, seg, capacity, impl="torch")
+
+    monkeypatch.setattr(SR, "use_kernel", use_kernel)
+    monkeypatch.setattr(SR, "_packed_k1", packed_k1)
+    monkeypatch.setattr(V, "segment_sum_sorted", k2)
+    if impl == "cuda" and not card:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            T.voxel_downsample(pc, 0.02, capacity=256, impl=impl)
+        return
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = T.voxel_downsample(pc, 0.02, capacity=256, impl=impl)
+    spans = [e.name for e in prof.events()
+             if e.name == "pcs.voxel.k1_packed"]
+    kernel = card and impl != "torch"
+    if batched:
+        assert ran == ["k2" if kernel else "k2_plain"] and not spans
+    else:
+        assert ran == (["k1_packed"] if kernel else [])
+        assert len(spans) == int(kernel)
+    want = T.voxel_downsample(pc, 0.02, capacity=256, impl="torch")
+    for name in ("xyz", "mask"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
 
 
 # --- nn, kabsch, trim, icp -----------------------------------------------

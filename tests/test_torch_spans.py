@@ -26,7 +26,7 @@ ITERS = 3
 # every module that opens a span (by module: ``ops.icp`` is also a function)
 SPAN_MODULES = [importlib.import_module("pointcloud_stitching_tpu_torch." + m)
                 for m in ("models.stitcher", "ops.icp", "ops.voxel",
-                          "runtime.client")]
+                          "kernels.segment_reduce", "runtime.client")]
 
 
 def _pipeline(icp_on: bool, device, ncam=NCAM, h=H, w=W):
@@ -194,6 +194,7 @@ def test_spans_add_no_device_event_on_the_card(cuda_device, monkeypatch,
     host = collections.Counter(e.name for e in events
                                if e.name.startswith("pcs."))
     assert host["pcs.sync"] == frames
+    assert host["pcs.voxel.k1_packed"] == frames
     # the ICP stage replays as one CUDA graph
     assert host["pcs.icp.graph"] == (frames if icp_on else 0)
     for mod in SPAN_MODULES:
@@ -203,3 +204,26 @@ def test_spans_add_no_device_event_on_the_card(cuda_device, monkeypatch,
     assert not [e for e in events if e.name.startswith("pcs.")]
     assert len(device_ops(events)) == len(with_spans)
     _same(out_spans, out_null)
+
+
+@pytest.mark.parametrize("on", ["cpu", pytest.param("cuda",
+                                                    marks=pytest.mark.cuda)])
+def test_the_packed_k1_span_opens_in_the_global_pass_on_the_card(request,
+                                                                 on):
+    """A profiled frame on the card holds one ``pcs.voxel.k1_packed`` span
+    (the pack kernel, the sort and K1 on packed rows), inside
+    ``pcs.output.voxel``; a frame on the CPU, whose pass is the plain
+    composition, holds none."""
+    dev = (request.getfixturevalue("cuda_device") if on == "cuda"
+           else torch.device("cpu"))
+    pipe, d = _pipeline(False, dev), _depths(dev)
+    _step(pipe, d, False)
+    _, events = _profile(lambda: _step(pipe, d, False), dev)
+    voxel = [e for e in events if e.name == "pcs.output.voxel"]
+    packed = [e for e in events if e.name == "pcs.voxel.k1_packed"]
+    assert len(voxel) == 1
+    assert len(packed) == (1 if on == "cuda" else 0)
+    for e in packed:
+        assert not e.is_user_annotation
+        assert (voxel[0].time_range.start <= e.time_range.start
+                and e.time_range.end <= voxel[0].time_range.end)
